@@ -26,15 +26,15 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnitsPerThread = 4;
 
-template <typename U, bool kGather>
-__global__ void frame_copy_kernel(const U* __restrict__ src,
-                                  U* __restrict__ dst,
+template <bool kGather>
+__global__ void frame_copy_kernel(const uint4* __restrict__ src,
+                                  uint4* __restrict__ dst,
                                   const int32_t* __restrict__ frames,
                                   int64_t units) {
   const int64_t i = blockIdx.y;
   const int64_t frame = frames[i];
-  const U* s = src + (kGather ? frame : i) * units;
-  U* d = dst + (kGather ? i : frame) * units;
+  const uint4* s = src + (kGather ? frame : i) * units;
+  uint4* d = dst + (kGather ? i : frame) * units;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        u < units; u += stride) {
@@ -42,36 +42,24 @@ __global__ void frame_copy_kernel(const U* __restrict__ src,
   }
 }
 
-template <typename U, bool kGather>
-void launch_typed(const void* src, void* dst, const void* frames, int64_t n,
-                  int64_t frame_bytes, cudaStream_t stream) {
-  const int64_t units = frame_bytes / static_cast<int64_t>(sizeof(U));
-  int64_t chunks = (units + kThreads * kUnitsPerThread - 1) /
-                   (kThreads * kUnitsPerThread);
-  if (chunks < 1) chunks = 1;
-  if (chunks > 65535) chunks = 65535;
-  dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(n));
-  frame_copy_kernel<U, kGather><<<grid, kThreads, 0, stream>>>(
-      static_cast<const U*>(src), static_cast<U*>(dst),
-      static_cast<const int32_t*>(frames), units);
-}
-
-// Widest copy unit that divides the frame and both base addresses.
+// Frames and both base addresses must be 16-byte aligned (the wrapper
+// checks; every store the port builds is).
 template <bool kGather>
 int launch(const void* src, void* dst, const void* frames, int64_t n,
            int64_t frame_bytes, void* stream) {
   if (n == 0 || frame_bytes == 0) return 0;
-  auto st = static_cast<cudaStream_t>(stream);
   const uintptr_t align = reinterpret_cast<uintptr_t>(src) |
                           reinterpret_cast<uintptr_t>(dst) |
                           static_cast<uintptr_t>(frame_bytes);
-  if (align % 16 == 0) {
-    launch_typed<uint4, kGather>(src, dst, frames, n, frame_bytes, st);
-  } else if (align % 4 == 0) {
-    launch_typed<uint32_t, kGather>(src, dst, frames, n, frame_bytes, st);
-  } else {
-    launch_typed<uint8_t, kGather>(src, dst, frames, n, frame_bytes, st);
-  }
+  if (align % sizeof(uint4) != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  const int64_t units = frame_bytes / static_cast<int64_t>(sizeof(uint4));
+  int64_t chunks = (units + kThreads * kUnitsPerThread - 1) /
+                   (kThreads * kUnitsPerThread);
+  if (chunks > 65535) chunks = 65535;
+  dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(n));
+  frame_copy_kernel<kGather><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), static_cast<uint4*>(dst),
+      static_cast<const int32_t*>(frames), units);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,6 +9,8 @@ between tiers is a frame copy indexed by the page table.
   pages in their target frames, in place; returns ``dst``.
 
 Frame indices must lie in ``[0, F)``; the kernels do not check them.
+They copy in 16-byte vectors, so a frame's size and the base address of
+every tensor must be multiples of 16 bytes; the wrappers raise otherwise.
 Both launch ``csrc/page_migrate.cu`` on the current CUDA stream and do
 not synchronise, so copies issued in program order (the staged flush's
 gathers before its scatters) run in that order.  Each wrapper counts its
@@ -40,6 +42,14 @@ def _lib() -> ctypes.CDLL:
     return build.library("page_migrate", _bind)
 
 
+def _check_aligned(what: str, store: torch.Tensor) -> None:
+    """The kernels copy 16-byte vectors: frame size and base must align."""
+    frame = _frame_bytes(store)
+    if frame % 16 or store.data_ptr() % 16:
+        raise ValueError(f"{what}: frames of {frame} B or a base address are "
+                         "not 16-byte aligned")
+
+
 def _check_frames(store: torch.Tensor, frames: torch.Tensor, what: str) -> None:
     if not store.is_cuda:
         raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor, got {store.device}")
@@ -57,6 +67,7 @@ def _frame_bytes(store: torch.Tensor) -> int:
 
 def page_gather(src: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
     """``out[i] = src[frames[i]]`` on the card; ``src`` is ``(F, ...)``."""
+    _check_aligned("page_gather", src)
     _check_frames(src, frames, "page_gather")
     frames = frames.contiguous()
     out = torch.empty((frames.shape[0],) + tuple(src.shape[1:]),
@@ -78,6 +89,7 @@ def page_scatter(dst: torch.Tensor, frames: torch.Tensor,
     Duplicate target frames are allowed only with identical payloads
     (the staged flush pads its batches with trash-frame copies).
     """
+    _check_aligned("page_scatter", dst)
     _check_frames(dst, frames, "page_scatter")
     if pages.device != dst.device or pages.dtype != dst.dtype:
         raise ValueError("page_scatter: pages must match dst's device and dtype")
@@ -88,6 +100,7 @@ def page_scatter(dst: torch.Tensor, frames: torch.Tensor,
         )
     frames = frames.contiguous()
     pages = pages.contiguous()
+    _check_aligned("page_scatter", pages)
     lib = _lib()
     with torch.cuda.device(dst.device):
         stream = torch.cuda.current_stream(dst.device).cuda_stream

@@ -8,6 +8,10 @@ on the device, drives :class:`repro_torch.serving.ServingEngine` on the
 batched data plane (the one that reaches the CUDA kernels) and prints
 throughput and placement stats.  Runs on ``--device cuda`` (the
 default) or ``cpu``; float32 with TF32 off for matmul and cuDNN.
+
+``--profile DIR`` then traces 16 decode steps with ``torch.profiler``
+and prints the device busy time, idle share and top device ops per
+step: the breakdown ``PERF.md`` ("Where the time goes") is taken from.
 """
 
 from __future__ import annotations

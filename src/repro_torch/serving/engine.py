@@ -165,7 +165,6 @@ class ServingEngine:
                 head_dim=a0.head_dim,
                 num_fast=engine.num_fast,
                 num_slow=engine.num_slow,
-                staged_migration=True,
             ),
             tpp=engine.tpp,
             device=self.device,

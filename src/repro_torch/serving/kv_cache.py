@@ -16,13 +16,13 @@ Counterpart of ``repro/serving/kv_cache.py`` over torch stores:
   engine reports touches, TPP decides migrations, this class executes
   the payload copies.
 
-With ``staged_migration=True`` (the batched data plane) one policy
-interval's copies are staged and executed as one
+One policy interval's copies are staged and executed as one
 ``page_gather``→``page_scatter`` pair per direction and store at the
-next payload access, all gathers before any scatter.  Both run on the
-current CUDA stream in program order, which is what makes the
-gathers-first order hold on the card.  With ``staged_migration=False``
-every migration copies eagerly.  The stores are updated in place.
+next payload access, all gathers before any scatter (the JAX cache's
+``staged_migration=True``; its eager per-page copies belong to the
+reference data plane, not ported yet).  Both run on the current CUDA
+stream in program order, which is what makes the gathers-first order
+hold on the card.  The stores are updated in place.
 """
 
 from __future__ import annotations
@@ -54,10 +54,6 @@ class KVCacheConfig:
     num_fast: int  # frames in the fast tier
     num_slow: int
     dtype: str = "float32"
-    # Batch one policy interval's payload copies into a single staged
-    # gather/scatter per direction (the batched data plane); False
-    # copies eagerly per page.
-    staged_migration: bool = False
 
     @property
     def kv_width(self) -> int:
@@ -106,15 +102,13 @@ class TieredKVCache:
         # interval batch cannot exceed them).  The prewarm builds and
         # loads the copy kernels before the first flush on the serving
         # path needs them.
-        self._flush_width = 1
-        if cfg.staged_migration:
-            self._flush_width = bucket(max(self.pool.config.demote_budget,
-                                           self.pool.config.promote_budget, 1))
-            idx = self._frames([self.trash_frame] * self._flush_width)
-            kernel_ops.page_scatter(
-                self.k_store, idx, kernel_ops.page_gather(self.k_store, idx))
-            kernel_ops.page_scatter(
-                self.v_store, idx, kernel_ops.page_gather(self.v_store, idx))
+        self._flush_width = bucket(max(self.pool.config.demote_budget,
+                                       self.pool.config.promote_budget, 1))
+        idx = self._frames([self.trash_frame] * self._flush_width)
+        kernel_ops.page_scatter(
+            self.k_store, idx, kernel_ops.page_gather(self.k_store, idx))
+        kernel_ops.page_scatter(
+            self.v_store, idx, kernel_ops.page_gather(self.v_store, idx))
 
     def _frames(self, frames: Sequence[int]) -> torch.Tensor:
         """Host frame list → int32 index tensor on the store's device."""
@@ -141,15 +135,11 @@ class TieredKVCache:
     # ---------------------------------------------------------------- #
     def _on_migrate(self, pid: int, src: Tier, src_frame: int, dst: Tier,
                     dst_frame: int) -> None:
-        """PagePool hook: copy (or stage) one page between tiers."""
+        """PagePool hook: stage one page's copy between tiers."""
         src_g = self._global(src, src_frame)
         dst_g = self._global(dst, dst_frame)
         self.migrated_pages += 1
         self.migrated_bytes += self.cfg.page_bytes
-        if not self.cfg.staged_migration:
-            self.k_store[dst_g] = self.k_store[src_g]
-            self.v_store[dst_g] = self.v_store[src_g]
-            return
         if src_g in self._pending_dst:
             # chained move (the page migrated earlier this interval and
             # its payload has not landed yet) — settle the batch first.
@@ -212,14 +202,6 @@ class TieredKVCache:
     # ---------------------------------------------------------------- #
     # payload plumbing
     # ---------------------------------------------------------------- #
-    def write_token(self, pid: int, slot: int, kv: torch.Tensor) -> None:
-        """Write one token's KV ``(L, W)`` into page ``pid`` at ``slot``."""
-        gf = self.global_frame(pid)
-        self._flush_if_touches(gf)
-        L, Hkv, D = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
-        self.k_store[gf, :, :, slot, :] = kv[:, : Hkv * D].reshape(L, Hkv, D)
-        self.v_store[gf, :, :, slot, :] = kv[:, Hkv * D:].reshape(L, Hkv, D)
-
     def write_tokens(self, pids: Sequence[int], slots: Sequence[int],
                      k_tok: torch.Tensor, v_tok: torch.Tensor) -> None:
         """Batched token write: ``k_tok``/``v_tok`` are ``(T, L, Hkv, D)``

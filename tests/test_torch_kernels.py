@@ -18,7 +18,7 @@ import numpy as np  # noqa: E402
 from repro.kernels.page_migrate import page_gather as jax_gather  # noqa: E402
 from repro.kernels.page_migrate import page_scatter as jax_scatter  # noqa: E402
 from repro.kernels.paged_attention import paged_attention as jax_paged  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, page_migrate  # noqa: E402
 from repro_torch.kernels.paged_attention import PAD_PAGE_POS  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -186,3 +186,18 @@ def test_kernel_impl_on_cpu_raises(op):
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[op]()
+
+
+@pytest.mark.parametrize("op", ["page_gather", "page_scatter"])
+@pytest.mark.parametrize("fault", ["frame_size", "base_address"])
+def test_copy_kernels_refuse_misaligned_frames(op, fault):
+    """The copy kernels move 16-byte vectors; a 12-byte frame or a store
+    that starts 4 bytes into an allocation is refused, not copied."""
+    store = (torch.zeros((4, 3)) if fault == "frame_size"
+             else torch.zeros(17)[1:].view(4, 4))
+    frames = torch.zeros(2, dtype=torch.int32)
+    call = {"page_gather": lambda: page_migrate.page_gather(store, frames),
+            "page_scatter": lambda: page_migrate.page_scatter(store, frames,
+                                                              store[:2])}[op]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call()
