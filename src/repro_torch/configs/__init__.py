@@ -2,9 +2,9 @@
 
 Counterpart of ``repro/configs/__init__.py``.  Each module exports
 ``config()`` (the published numbers) and ``smoke_config()`` (a reduced
-variant of the same family for CPU tests).  Only ``tinyllama-1.1b`` is
-ported so far; the other architectures are ROADMAP Queue 1 item "other
-model families".
+variant of the same family for CPU tests).  Ported so far:
+``tinyllama-1.1b`` (dense) and ``phi3.5-moe-42b-a6.6b`` (MoE); the other
+architectures are ROADMAP Queue 1 item "other model families".
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Dict, List
 
 ALIASES: Dict[str, str] = {
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
 }
 
 

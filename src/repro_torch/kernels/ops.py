@@ -7,9 +7,6 @@ fallback: a kernel that fails to build or launch raises.
 ``impl="kernel"`` insists on the kernel (and raises for a CPU tensor);
 ``impl="ref"`` runs the plain version on any device, which is how the
 chip smoke test compares the two on the card.
-
-``flash_attention`` and ``router_topk`` are still to be ported (ROADMAP
-Queue 2).
 """
 
 from __future__ import annotations
@@ -18,14 +15,18 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import page_migrate as _pm
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import router_topk as _rt
 
 #: the kernel wrappers whose ``launches`` counts a run can read
 KERNELS = {
     "paged_attention": _pa.paged_attention,
     "page_gather": _pm.page_gather,
     "page_scatter": _pm.page_scatter,
+    "router_topk": _rt.router_topk,
+    "flash_attention": _fa.flash_attention,
 }
 
 
@@ -40,6 +41,11 @@ def _pick(impl: str, x: torch.Tensor) -> str:
     if impl not in ("kernel", "ref"):
         raise ValueError(f"unknown impl {impl!r}; choose auto, kernel or ref")
     return impl
+
+
+def flash_attention(q, k, v, causal=True, window=None, scale=None, impl="auto"):
+    fn = _fa.flash_attention if _pick(impl, q) == "kernel" else _fa.flash_attention_plain
+    return fn(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def paged_attention(q, k_pages, v_pages, block_table, lengths=None, scale=None,
@@ -61,6 +67,12 @@ def page_scatter(dst, frames, pages, impl="auto"):
     if _pick(impl, dst) == "kernel":
         return _pm.page_scatter(dst, frames, pages)
     return _pm.page_scatter_plain(dst, frames, pages)
+
+
+def router_topk(logits, k, impl="auto"):
+    """→ ``(probs, vals, idx)``."""
+    fn = _rt.router_topk if _pick(impl, logits) == "kernel" else _rt.router_topk_plain
+    return fn(logits, k)
 
 
 def launch_counts() -> Dict[str, int]:

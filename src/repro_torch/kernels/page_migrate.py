@@ -72,6 +72,8 @@ def page_gather(src: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
     frames = frames.contiguous()
     out = torch.empty((frames.shape[0],) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
+    if out.numel() == 0:  # nothing to launch, so nothing to count
+        return out
     lib = _lib()
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
@@ -101,6 +103,8 @@ def page_scatter(dst: torch.Tensor, frames: torch.Tensor,
     frames = frames.contiguous()
     pages = pages.contiguous()
     _check_aligned("page_scatter", pages)
+    if pages.numel() == 0:  # nothing to launch, so nothing to count
+        return dst
     lib = _lib()
     with torch.cuda.device(dst.device):
         stream = torch.cuda.current_stream(dst.device).cuda_stream

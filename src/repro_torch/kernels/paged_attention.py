@@ -116,6 +116,8 @@ def paged_attention(
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     q = q.contiguous()
     out = torch.empty_like(q)
+    if out.numel() == 0:  # nothing to launch, so nothing to count
+        return out
     lib = build.library("paged_attention", _bind)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -2,12 +2,16 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --requests 8 --prompt-len 48 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
 
 Counterpart of ``repro/launch/serve.py``.  Builds seeded random weights
 on the device, drives :class:`repro_torch.serving.ServingEngine` on the
 batched data plane (the one that reaches the CUDA kernels) and prints
 throughput and placement stats.  Runs on ``--device cuda`` (the
-default) or ``cpu``; float32 with TF32 off for matmul and cuDNN.
+default) or ``cpu``; float32 with TF32 off for matmul and cuDNN.  A
+model whose weights do not fit the card's free memory is refused
+(phi3.5-moe-42b-a6.6b at full depth): there is no depth option.
 
 ``--profile DIR`` then traces 16 decode steps with ``torch.profiler``
 and prints the device busy time, idle share and top device ops per
@@ -27,7 +31,7 @@ import torch
 
 from repro_torch.core import TppConfig
 from repro_torch.kernels import build
-from repro_torch.models.model import ModelConfig, init_params
+from repro_torch.models.model import ModelConfig, init_params, param_bytes
 from repro_torch.serving import EngineConfig, ServingEngine
 
 
@@ -35,6 +39,25 @@ def strict_fp32() -> None:
     """Full float32 matmuls and convolutions: TF32 off for both."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def check_fits(cfg: ModelConfig, device) -> None:
+    """Refuse a model whose float32 weights exceed the card's free memory
+    (phi3.5-moe-42b-a6.6b at its 32 layers is 167 GB), rather than cut
+    it silently or fail part way through building it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    need = param_bytes(cfg)
+    free, total = torch.cuda.mem_get_info(device)
+    if need > free:
+        raise SystemExit(
+            f"{cfg.name} at {cfg.n_layers} layers needs {need / 1e9:.1f} GB of "
+            f"float32 weights; the card has {free / 1e9:.1f} GB free of "
+            f"{total / 1e9:.1f} GB.  Run --smoke, or serve fewer layers from a "
+            "script (dataclasses.replace(cfg, stacks=((pattern, n),)), as "
+            "chip_smoke.py does)."
+        )
 
 
 def serve(cfg: ModelConfig, params: Any, ecfg: EngineConfig, requests: int,
@@ -159,6 +182,17 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
     prof.export_chrome_trace(str(out / "trace.json"))
     top = sorted((e for e in ka if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:12]
+    # the port's own kernels in place, by their device function names
+    own = {}
+    for name, fn in (("paged_attention", "paged_attention_kernel"),
+                     ("router_topk", "router_topk_kernel"),
+                     ("flash_attention", "flash_attention_kernel"),
+                     ("page_gather+page_scatter", "frame_copy_kernel")):
+        evs = [e for e in ka if e.device_type.name == "CUDA" and fn in e.key]
+        n = sum(e.count for e in evs)
+        if n:
+            us = sum(e.self_device_time_total for e in evs)
+            own[name] = {"launches_per_step": n / steps, "us_per_launch": us / n}
     return {
         "traced_steps": steps,
         "wall_ms_per_step": 1e3 * wall / steps,
@@ -166,6 +200,7 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "top_device_ops_ms_per_step": {
             e.key: e.self_device_time_total / 1e3 / steps for e in top},
+        "port_kernels_in_place": own,
     }
 
 
@@ -191,6 +226,7 @@ def main() -> None:
 
     strict_fp32()
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    check_fits(cfg, args.device)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=args.device)
     res = serve(

@@ -2,10 +2,13 @@
 
 This slice carries what the tiered-KV serving engine calls: the
 :class:`AttnConfig` dataclass, the cos/sin tables and rotation
-(:func:`make_cos_sin`, :func:`_rotate`), the naive full-score
-:func:`reference_attention` used by prefill, and :func:`init_gqa` for the
-port's own weights.  The chunked training path,
-the dense-cache decode and MLA are later slices (ROADMAP Queue 1).
+(:func:`make_cos_sin`, :func:`_rotate`) and :func:`init_gqa` for the
+port's own weights.  Prefill attention runs the flash kernel
+(``kernels.ops.flash_attention``); :func:`reference_attention` is the
+naive full-score attention in the model's ``(B, S, H, D)`` layout that
+the JAX package's ``attention_fwd`` and dense decode also take, kept for
+their ports.  The chunked training path, the dense-cache decode and MLA
+are later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations

@@ -93,6 +93,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     return p
 
 
+def param_bytes(cfg: ModelConfig, dtype=torch.float32) -> int:
+    """Bytes of ``init_params(cfg)`` in ``dtype``, from a build on the
+    ``meta`` device (shapes only: no memory, no random draws)."""
+    tree = init_params(cfg, torch.Generator(), device="meta", dtype=dtype)
+    total = 0
+
+    def add(t: torch.Tensor) -> None:
+        nonlocal total
+        total += t.numel() * t.element_size()
+
+    tree_map(add, tree)
+    return total
+
+
 def params_from_jax(tree: Any, device="cuda", dtype: Optional[torch.dtype] = None) -> Params:
     """The JAX package's parameters, as a tree of numpy arrays, → tensors.
 

@@ -22,6 +22,8 @@ Params = Dict[str, Any]
 # --------------------------------------------------------------------- #
 def normal_init(generator: torch.Generator, shape: Sequence[int], std: float,
                 dtype: torch.dtype, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":  # shapes only: nothing is drawn
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = torch.randn(tuple(shape), generator=generator, device=generator.device,
                     dtype=torch.float32)
     return x.mul_(std).to(device=device, dtype=dtype)

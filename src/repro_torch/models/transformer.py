@@ -4,9 +4,9 @@
 A model is ``n_layers`` blocks arranged as a repeating **pattern**;
 parameters of each pattern position are **stacked over repeats**, so the
 tree matches the JAX package's leaf for leaf (``init_stack``,
-``repro/models/transformer.py:225-253``).  This slice builds attention +
-FFN blocks; MoE, SSM mixers and shared (LoRA) blocks raise
-``NotImplementedError`` until their slices.
+``repro/models/transformer.py:225-253``).  The port builds attention
+blocks with a dense FFN or an MoE FFN; SSM mixers, MLA and shared
+(LoRA) blocks raise ``NotImplementedError`` until their slices.
 """
 
 from __future__ import annotations
@@ -19,10 +19,10 @@ import torch
 from repro_torch.models import nn
 from repro_torch.models.attention import AttnConfig, init_gqa
 from repro_torch.models.ffn import init_ffn
+from repro_torch.models.moe import MoeConfig, init_moe
 from repro_torch.models.nn import Params
 
-_LATER = ("ROADMAP Queue 1 item 'other model families (window, rope2d, "
-          "mrope, MoE)' / 'training path'")
+_LATER = ("ROADMAP Queue 1 item 'other model families' / 'training path'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +33,7 @@ class BlockSpec:
     attn: Optional[AttnConfig] = None
     d_ff: int = 0
     ffn_kind: str = "swiglu"
-    moe: Optional[Any] = None
+    moe: Optional[MoeConfig] = None
     mamba: Optional[Any] = None
     mlstm: Optional[Any] = None
     slstm: Optional[Any] = None
@@ -50,8 +50,6 @@ def _check_supported(spec: BlockSpec) -> None:
         raise NotImplementedError(f"{spec.kind} blocks are not ported yet: {_LATER}")
     if spec.attn.is_mla:
         raise NotImplementedError(f"MLA attention is not ported yet: {_LATER}")
-    if spec.moe is not None:
-        raise NotImplementedError(f"MoE FFN blocks are not ported yet: {_LATER}")
     if spec.shared:
         raise NotImplementedError(f"shared (LoRA) blocks are not ported yet: {_LATER}")
 
@@ -63,16 +61,27 @@ def init_block(generator: torch.Generator, spec: BlockSpec, d_model: int,
     p["attn"] = init_gqa(generator, spec.attn, dtype, device)
     if spec.has_ffn:
         p["norm2"] = nn.rmsnorm_init(d_model, dtype=dtype, device=device)
-        p["ffn"] = init_ffn(generator, d_model, spec.d_ff, spec.ffn_kind, dtype, device)
+        if spec.moe is not None:
+            p["moe"] = init_moe(generator, d_model, spec.moe, dtype, device)
+        else:
+            p["ffn"] = init_ffn(generator, d_model, spec.d_ff, spec.ffn_kind,
+                                dtype, device)
     return p
 
 
-def _stack(trees: Sequence[Any]) -> Any:
-    """Stack a list of identical trees leaf by leaf (leading dim)."""
-    first = trees[0]
+def _alloc_stacked(first: Any, n: int) -> Any:
+    """An uninitialised tree shaped like ``first`` with a leading ``n`` dim."""
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(list(trees))
+        return {k: _alloc_stacked(v, n) for k, v in first.items()}
+    return first.new_empty((n,) + tuple(first.shape))
+
+
+def _fill(stacked: Any, r: int, tree: Any) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _fill(stacked[k], r, v)
+    else:
+        stacked[r].copy_(tree)
 
 
 def init_stack(generator: torch.Generator, pattern: Sequence[BlockSpec],
@@ -82,9 +91,17 @@ def init_stack(generator: torch.Generator, pattern: Sequence[BlockSpec],
     ``n_repeats`` dim; ``shared``/``lora`` hold None for plain blocks."""
     p: Params = {"blocks": [], "shared": [], "lora": []}
     for spec in pattern:
-        reps = [init_block(generator, spec, d_model, dtype, device)
-                for _ in range(n_repeats)]
-        p["blocks"].append(_stack(reps))
+        # one repeat at a time into the stacked leaves: the peak is the
+        # stack plus one block, not twice the stack (8 layers of
+        # phi3.5-moe are 42.7 GB in float32)
+        stacked = None
+        for r in range(n_repeats):
+            block = init_block(generator, spec, d_model, dtype, device)
+            if stacked is None:
+                stacked = _alloc_stacked(block, n_repeats)
+            _fill(stacked, r, block)
+            del block
+        p["blocks"].append(stacked)
         p["shared"].append(None)
         p["lora"].append(None)
     return p

@@ -1,7 +1,10 @@
 """Serving engine: continuous batching over the tiered paged KV cache.
 
 Counterpart of ``repro/serving/engine.py`` for the **batched** data
-plane.  All active sequences decode in one step:
+plane, for GQA attention archs with a dense or an MoE FFN.  Prefill
+runs ``kernels.ops.flash_attention`` per layer over the prompt, and MoE
+blocks route through ``kernels.ops.router_topk``.  All active sequences
+decode in one step:
 
 * top-k page selection: each sequence attends its last ``recent_pages``
   pages exactly plus the ``topk_pages`` older pages ranked by
@@ -35,9 +38,10 @@ from repro_torch.core import PageType, Tier, TppConfig, make_policy
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.paged_attention import PAD_PAGE_POS
 from repro_torch.models import nn
-from repro_torch.models.attention import _rotate, make_cos_sin, reference_attention
+from repro_torch.models.attention import _rotate, make_cos_sin
 from repro_torch.models.ffn import ffn_fwd
 from repro_torch.models.model import ModelConfig, tree_map
+from repro_torch.models.moe import moe_fwd
 from repro_torch.serving.kv_cache import KVCacheConfig, TieredKVCache, bucket as _bucket
 
 
@@ -309,10 +313,14 @@ class ServingEngine:
             if cos is not None:
                 q = _rotate(a, q, cos, sin)
                 k = _rotate(a, k, cos, sin)
-            o = reference_attention(q, k, v, causal=True, window=a.window)
-            x = x + nn.dense(pa["attn"]["wo"], o.reshape(1, S, -1))
+            # (1, S, H, D) → (1, H, S, D) views: the kernel takes strides
+            o = kernel_ops.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=True, window=a.window,
+            )  # (1, H, S, D)
+            x = x + nn.dense(pa["attn"]["wo"], o.transpose(1, 2).reshape(1, S, -1))
             if spec.has_ffn:
-                x = x + ffn_fwd(pa["ffn"], nn.rmsnorm(pa["norm2"], x), spec.ffn_kind)
+                x = x + self._ffn(pa, spec, x)
             k_layers.append(k[0])  # (S, Hkv, D)
             v_layers.append(v[0])
         return torch.stack(k_layers, dim=0), torch.stack(v_layers, dim=0)
@@ -519,7 +527,9 @@ class ServingEngine:
             )  # (B, H, D)
             x = x + nn.dense(pa["attn"]["wo"], o.reshape(B, 1, -1).to(x.dtype))
             if spec.has_ffn:
-                x = x + ffn_fwd(pa["ffn"], nn.rmsnorm(pa["norm2"], x), spec.ffn_kind)
+                # padded lanes go through the MoE too, as in the JAX
+                # engine: they count towards each expert's capacity
+                x = x + self._ffn(pa, spec, x)
             k_layers.append(k_t)
         h = nn.rmsnorm(params["final_norm"], x)
         if self.cfg.tie_embeddings:
@@ -534,6 +544,14 @@ class ServingEngine:
         self._ksum.index_put_(idx, k_all, accumulate=True)
         self._kcnt.index_put_(idx, torch.ones(B, device=self.device), accumulate=True)
         return toks_out
+
+    @staticmethod
+    def _ffn(pa: Any, spec: Any, x: torch.Tensor) -> torch.Tensor:
+        """The block's FFN on ``norm2(x)``: MoE (``router_topk``) or dense."""
+        h = nn.rmsnorm(pa["norm2"], x)
+        if spec.moe is not None:
+            return moe_fwd(pa["moe"], spec.moe, h)[0]
+        return ffn_fwd(pa["ffn"], h, spec.ffn_kind)
 
     def _score_impl(self, probe_params, ksum, kcnt, toks, slot_ids) -> torch.Tensor:
         """Query·page-key-summary relevance for every (seq, page)."""

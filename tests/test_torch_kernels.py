@@ -3,7 +3,8 @@
 Each plain PyTorch version (what a CPU tensor runs) is held against the
 Pallas TPU kernel in interpret mode, as ``tests/test_kernels.py`` runs
 it, on that file's sweeps and tolerances (``TOL``: 2e-5 in float32,
-2e-2 in bfloat16; gather and scatter exact).  Inputs are made with numpy
+2e-2 in bfloat16; gather and scatter exact; router probabilities and
+values within 1e-6, indices exact).  Inputs are made with numpy
 from a seed and handed to both frameworks.  The CUDA kernels themselves
 run only on the card (``chip_smoke.py``).
 """
@@ -15,10 +16,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.page_migrate import page_gather as jax_gather  # noqa: E402
 from repro.kernels.page_migrate import page_scatter as jax_scatter  # noqa: E402
 from repro.kernels.paged_attention import paged_attention as jax_paged  # noqa: E402
+from repro.kernels.router_topk import router_topk as jax_router  # noqa: E402
 from repro_torch.kernels import ops, page_migrate  # noqa: E402
+from repro_torch.models.attention import reference_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import PAD_PAGE_POS  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -172,7 +176,81 @@ def test_page_migrate_trash_frame_duplicates():
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
-@pytest.mark.parametrize("op", ["paged_attention", "page_gather", "page_scatter"])
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,Hkv,S,D,causal,window,bq,bk",
+    [
+        (1, 4, 4, 128, 64, True, None, 64, 64),
+        (2, 8, 2, 96, 32, True, None, 32, 32),
+        (1, 4, 2, 200, 64, True, 64, 64, 64),
+        (1, 2, 1, 64, 128, True, None, 32, 32),
+        (2, 2, 2, 40, 16, False, None, 16, 16),
+        (1, 8, 4, 256, 256, True, 128, 128, 128),
+    ],
+)
+def test_flash_attention_sweep(B, H, Hkv, S, D, causal, window, bq, bk, dtype):
+    """The sweeps of ``tests/test_kernels.py:26-37``, Pallas in interpret
+    mode at that file's block sizes; ``TOL`` as there."""
+    rng = np.random.default_rng(S * D + H)
+    q = both(rng.standard_normal((B, H, S, D), np.float32), dtype)
+    k = both(rng.standard_normal((B, Hkv, S, D), np.float32), dtype)
+    v = both(rng.standard_normal((B, Hkv, S, D), np.float32), dtype)
+    want = jax_flash(q[0], k[0], v[0], causal=causal, window=window,
+                     bq=bq, bk=bk, interpret=True)
+    got = ops.flash_attention(q[1], k[1], v[1], causal=causal, window=window)
+    assert got.dtype == TDT[dtype] and got.shape == (B, H, S, D)
+    assert_close(got, want, dtype)
+
+
+def test_flash_attention_on_transposed_views_is_prefill_attention():
+    """The engine hands the kernel its ``(B, S, H, D)`` projections as
+    ``(B, H, S, D)`` views; through them flash attention equals the
+    model's full-score ``reference_attention`` (which it replaced in
+    prefill), with a window and GQA."""
+    rng = np.random.default_rng(21)
+    q = torch.from_numpy(rng.standard_normal((1, 47, 8, 32), np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 47, 2, 32), np.float32))
+    v = torch.from_numpy(rng.standard_normal((1, 47, 2, 32), np.float32))
+    for window in (None, 16):
+        got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True, window=window)
+        want = reference_attention(q, k, v, causal=True, window=window)
+        assert_close(got.transpose(1, 2), want.numpy(), "float32")
+
+
+# --------------------------------------------------------------------- #
+def assert_router_equal(got, want):
+    for g, w, name in zip(got, want, ("probs", "vals")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6, err_msg=name)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert got[2].dtype == torch.int32
+
+
+@pytest.mark.parametrize("T,E,k", [(64, 16, 2), (100, 64, 6), (7, 8, 2)])
+def test_router_topk(T, E, k):
+    """The cases of ``tests/test_kernels.py:144`` against the Pallas kernel
+    in interpret mode (its block of 32 tokens pads T=100 and T=7)."""
+    logits = np.random.default_rng(T + E).standard_normal((T, E)).astype(np.float32)
+    want = jax_router(jnp.asarray(logits), k, block_tokens=32, interpret=True)
+    assert_router_equal(ops.router_topk(torch.from_numpy(logits), k), want)
+
+
+def test_router_topk_ties_go_to_the_lower_index():
+    """Rows with exactly equal logits: the lower expert wins each tie, as
+    the TPU kernel's iterated argmax and ``lax.top_k`` choose."""
+    logits = np.zeros((4, 16), np.float32)
+    logits[1, [3, 9, 12]] = 2.0  # three-way tie for the top
+    logits[2, [15, 0]] = 1.0
+    logits[3] = np.arange(16) % 4  # four ties of four
+    want = jax_router(jnp.asarray(logits), 3, block_tokens=32, interpret=True)
+    got = ops.router_topk(torch.from_numpy(logits), 3)
+    assert_router_equal(got, want)
+    assert got[2].tolist() == [[0, 1, 2], [3, 9, 12], [0, 15, 1], [3, 7, 11]]
+
+
+@pytest.mark.parametrize("op", ["paged_attention", "page_gather", "page_scatter",
+                                "router_topk", "flash_attention"])
 def test_kernel_impl_on_cpu_raises(op):
     """``impl="kernel"`` on a CPU tensor raises; it never falls back."""
     x = torch.zeros((4, 2, 8, 16))
@@ -183,6 +261,8 @@ def test_kernel_impl_on_cpu_raises(op):
             torch.ones(1, dtype=torch.int32), impl="kernel"),
         "page_gather": lambda: ops.page_gather(x, frames, impl="kernel"),
         "page_scatter": lambda: ops.page_scatter(x, frames, x[:2], impl="kernel"),
+        "router_topk": lambda: ops.router_topk(torch.zeros((3, 16)), 2, impl="kernel"),
+        "flash_attention": lambda: ops.flash_attention(x, x, x, impl="kernel"),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[op]()

@@ -21,10 +21,11 @@ from repro.models.model import init_params as jax_init_params  # noqa: E402
 from repro.serving import EngineConfig as JaxEngineConfig  # noqa: E402
 from repro.serving import ServingEngine as JaxServingEngine  # noqa: E402
 from test_serving_parity import lifecycle_trace as jax_lifecycle_trace  # noqa: E402
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import TppConfig  # noqa: E402
-from repro_torch.launch.serve import lifecycle_trace  # noqa: E402
-from repro_torch.models.model import params_from_jax  # noqa: E402
+from repro_torch.kernels import ops as kernel_ops  # noqa: E402
+from repro_torch.launch.serve import check_fits, lifecycle_trace, serve  # noqa: E402
+from repro_torch.models.model import init_params, params_from_jax  # noqa: E402
 from repro_torch.serving import AdmissionError, EngineConfig, ServingEngine  # noqa: E402
 
 pytestmark = pytest.mark.slow
@@ -34,21 +35,38 @@ pytestmark = pytest.mark.slow
 BASE = dict(page_size=4, num_fast=10, num_slow=64, recent_pages=1)
 
 
-@pytest.fixture(scope="module")
-def tiny():
-    cfg = jax_smoke_config("tinyllama-1.1b")
+def smoke_models(arch):
+    cfg = jax_smoke_config(arch)
     params = jax_init_params(jax.random.PRNGKey(0), cfg)
     np_params = jax.tree_util.tree_map(np.asarray, params)
     return cfg, params, params_from_jax(np_params, device="cpu")
 
 
-@pytest.mark.parametrize("topk", [2, None], ids=["topk", "exact"])
-def test_lifecycle_matches_jax_batched_engine(tiny, topk):
-    jcfg, jparams, tparams = tiny
+@pytest.fixture(scope="module")
+def tiny():
+    return smoke_models("tinyllama-1.1b")
+
+
+@pytest.fixture(scope="module")
+def moe():
+    return smoke_models("phi3.5-moe-42b-a6.6b")
+
+
+@pytest.mark.parametrize("arch,topk", [
+    pytest.param("tinyllama-1.1b", 2, id="topk"),
+    pytest.param("tinyllama-1.1b", None, id="exact"),
+    pytest.param("phi3.5-moe-42b-a6.6b", 2, id="phi3.5-moe-topk"),
+    pytest.param("phi3.5-moe-42b-a6.6b", None, id="phi3.5-moe-exact"),
+])
+def test_lifecycle_matches_jax_batched_engine(request, arch, topk):
+    """The MoE case routes every prefill and decode step through
+    ``router_topk`` and its capacity dispatch, on the padded decode batch."""
+    jcfg, jparams, tparams = request.getfixturevalue(
+        "tiny" if arch == "tinyllama-1.1b" else "moe")
     want = jax_lifecycle_trace(jcfg, jparams, JaxEngineConfig(
         data_plane="batched", topk_pages=topk,
         tpp=JaxTppConfig(demote_budget=16, promote_budget=8), **BASE))
-    cfg = get_smoke_config("tinyllama-1.1b")
+    cfg = get_smoke_config(arch)
     eng = ServingEngine(cfg, tparams, EngineConfig(
         data_plane="batched", topk_pages=topk,
         tpp=TppConfig(demote_budget=16, promote_budget=8), **BASE),
@@ -124,3 +142,45 @@ def test_detached_prefill_and_admission_cap(tiny):
     with pytest.raises(AdmissionError) as exc:
         eng.add_request([1, 2, 3])
     assert exc.value.reason == "max_seqs"
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "phi3.5-moe-42b-a6.6b"])
+def test_serve_calls_flash_per_prefill_layer_and_router_per_moe_layer(arch, monkeypatch):
+    """Prefill runs ``flash_attention`` once per layer and prompt; an MoE
+    model runs ``router_topk`` once per layer in every prefill and every
+    decode step (the counts ``chip_smoke.py`` holds the kernels to)."""
+    calls = {"flash_attention": 0, "router_topk": 0}
+
+    def counted(name):
+        fn = getattr(kernel_ops, name)
+
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name in calls:
+        monkeypatch.setattr(kernel_ops, name, counted(name))
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    res = serve(cfg, params, EngineConfig(**BASE), requests=3, prompt_len=9,
+                max_new=5, device="cpu")
+    L = cfg.n_layers
+    assert calls["flash_attention"] == L * 3
+    assert calls["router_topk"] == (L * (3 + res["steps"]) if arch != "tinyllama-1.1b"
+                                    else 0)
+
+
+def test_launcher_refuses_a_model_larger_than_the_card(monkeypatch):
+    """phi3.5-moe at its 32 layers (167 GB in float32) is refused on an
+    80 GB card, not cut; tinyllama-1.1b (4.4 GB) and the 8-layer cut
+    (42.7 GB) pass."""
+    import dataclasses
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (80e9, 80e9))
+    with pytest.raises(SystemExit, match="167.5 GB"):
+        check_fits(get_config("phi3.5-moe-42b-a6.6b"), "cuda:0")
+    check_fits(get_config("tinyllama-1.1b"), "cuda:0")
+    cfg = get_config("phi3.5-moe-42b-a6.6b")
+    check_fits(dataclasses.replace(cfg, stacks=((cfg.stacks[0][0], 8),)), "cuda:0")
+    check_fits(cfg, "cpu")  # host memory is not checked
