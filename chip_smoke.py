@@ -12,7 +12,11 @@ into ``build/``) and runs these phases:
 2. **Kernels** — each of the five kernels against its plain PyTorch
    version on the card: ``paged_attention`` at the decode shapes of
    tinyllama-1.1b (H=32, Hkv=4, D=64) and phi3.5-moe (H=32, Hkv=8,
-   D=128), P=16, B=MP=8, over strided ``store[:, li]`` views; gather and
+   D=128), P=16, B=MP=8, over strided ``store[:, li]`` views, with the
+   edges of its split over pages (splits made only of pad pages, a
+   window that masks whole splits, pad lanes exactly 0, B=64 where
+   there is no split, G=20 over two blocks a head, tiles copied element
+   by element) and a long context of MP=64 distinct pages; gather and
    scatter of 64 frames with trash-frame padding, exact, at both serve
    paths' frames (tinyllama (22, 4, 16, 64), phi3.5-moe (8, 8, 16,
    128)); ``router_topk`` at the MoE serve
@@ -21,10 +25,12 @@ into ``build/``) and runs these phases:
    against the CPU at its decode and prefill shapes, where experts
    overflow and drop assignments; no launch counted for empty inputs;
    ``flash_attention`` at the two prefill shapes (S=47, causal, through
-   the engine's transposed views) and S=512, D=64; plus the small sweeps
-   of ``tests/test_kernels.py``.  Times each kernel, its plain version
-   and, where one exists, the one PyTorch call that computes the same
-   function.
+   the engine's transposed views), S=512, D=64, a ragged S=513, phi3.5's
+   heads at S=2048, widths off its templates (D=80, 96) and rows off
+   16-byte alignment (the element-by-element loader); plus the
+   small sweeps of ``tests/test_kernels.py``.  Times each kernel, its
+   plain version and, where one exists, the one PyTorch call that
+   computes the same function.
 3. **Serve** — full-width tinyllama-1.1b, then full-width phi3.5-moe
    cut to 8 of its 32 layers (42.7 GB of float32 weights), each with
    seeded random weights through ``ServingEngine`` on ``cuda``: 8
@@ -57,7 +63,9 @@ ROOT = Path(__file__).resolve().parent
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 8  # of 32: 42.7 GB of float32 weights on an 80 GB card
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# H100 SXM peak FLOP/s by input type, NVIDIA data sheet, dense: float32
+# outside the tensor cores, bfloat16 on them
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:18
 
 
@@ -113,17 +121,22 @@ def time_ms(torch, fn, flush, iters: int = 50, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, dtype: str = "float32"):
+    """Least time in ms for ``nbytes`` of HBM traffic and ``flops`` on
+    inputs of ``dtype``, and which of the two sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # --------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------- #
-def attn_case(torch, gen, B, H, Hkv, P, MP, D, F, L, dtype, window, pad_lanes):
-    """Random position-mode inputs over an (F, L, Hkv, P, D) store."""
+def attn_case(torch, gen, B, H, Hkv, P, MP, D, F, L, dtype, window, pad_lanes,
+              pad_tail=1, distinct=False):
+    """Random position-mode inputs over an (F, L, Hkv, P, D) store: the
+    last ``pad_tail`` entries of each lane are pad entries on the trash
+    frame; ``distinct`` gives every entry its own frame."""
     from repro_torch.kernels.paged_attention import PAD_PAGE_POS
 
     dev = "cuda"
@@ -131,11 +144,15 @@ def attn_case(torch, gen, B, H, Hkv, P, MP, D, F, L, dtype, window, pad_lanes):
     store_v = torch.randn((F, L, Hkv, P, D), generator=gen, device=dev).to(dtype)
     q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
     trash = F - 1
-    bt = torch.randint(0, F - 1, (B, MP), generator=gen, device=dev).to(torch.int32)
+    if distinct:
+        bt = torch.randperm(F - 1, generator=gen, device=dev)[:B * MP]
+        bt = bt.view(B, MP).to(torch.int32)
+    else:
+        bt = torch.randint(0, F - 1, (B, MP), generator=gen, device=dev).to(torch.int32)
     ps = (torch.arange(MP, device=dev, dtype=torch.int32) * P).expand(B, MP).clone()
-    q_pos = torch.full((B,), MP * P - 3, dtype=torch.int32, device=dev)
-    ps[:, MP - 1] = PAD_PAGE_POS  # one pad entry per lane
-    bt[:, MP - 1] = trash
+    q_pos = torch.full((B,), (MP - pad_tail + 1) * P - 3, dtype=torch.int32, device=dev)
+    ps[:, MP - pad_tail:] = PAD_PAGE_POS  # pad entries at the end of each lane
+    bt[:, MP - pad_tail:] = trash
     for b in range(B - pad_lanes, B):  # fully masked pad lanes
         bt[b] = trash
         ps[b] = PAD_PAGE_POS
@@ -168,7 +185,7 @@ def attn_work(torch, case):
 
 
 def check_paged_attention(torch, gen, F, L, moe_L, flush, fails):
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import paged_attention as pa
 
     checks = []
@@ -188,20 +205,58 @@ def check_paged_attention(torch, gen, F, L, moe_L, flush, fails):
         if not ok:
             fails.append(f"paged_attention {name} {dtype}: max_abs_err {err}")
 
-    main = None
+    def plan(case):
+        B, H, _ = case["q"].shape
+        _, Hkv, _, _ = case["k_pages"].shape
+        GC, NW, NS, pps = pa.split_plan(B, Hkv, H // Hkv, case["block_table"].shape[1],
+                                        build.sm_count("cuda"))
+        return f"NS={NS} pps={pps}"
+
+    main = long_ctx = ns1 = None
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for window in (None, 40):
             case = attn_case(torch, gen, 8, 32, 4, 16, 8, 64, F, L, dtype,
                              window, pad_lanes=2)
-            run(f"main B=8 MP=8 F={F} L={L} window={window}", case, dtype_name,
-                exact_zero_rows=2)
+            # the last entry is a pad page: its split (one page) is pad only;
+            # the window of 40 masks the first five splits whole
+            run(f"main B=8 MP=8 F={F} L={L} window={window} {plan(case)} "
+                f"(pad-only split{', whole splits masked by the window' if window else ''})",
+                case, dtype_name, exact_zero_rows=2)
             if dtype_name == "float32" and window is None:
                 main = case
+        # splits of several pages, the last two of them pad only
+        case = attn_case(torch, gen, 8, 32, 4, 16, 32, 64, F, 1, dtype, None,
+                         pad_lanes=1, pad_tail=4)
+        run(f"B=8 MP=32 {plan(case)} last 4 entries pad (a pad-only split)",
+            case, dtype_name, exact_zero_rows=1)
+        # B·Hkv = 256 blocks: no split, out written directly
+        case = attn_case(torch, gen, 64, 32, 4, 16, 8, 64, F, L, dtype, None,
+                         pad_lanes=3)
+        run(f"B=64 MP=8 {plan(case)} (no split)", case, dtype_name, exact_zero_rows=3)
+        if dtype_name == "float32":
+            ns1 = case
+        # long context: 64 distinct pages of 16 tokens over a one-layer store
+        # of 1025 frames (32 MB of K and V in float32)
+        case = attn_case(torch, gen, 8, 32, 4, 16, 64, 64, 1025, 1, dtype, None,
+                         pad_lanes=1, pad_tail=1, distinct=True)
+        run(f"long context B=8 MP=64 F=1025 L=1 {plan(case)}", case, dtype_name,
+            exact_zero_rows=1)
+        if dtype_name == "float32":
+            long_ctx = case
     # phi3.5-moe's decode shape: Hkv=8, G=4, D=128 over its 8-layer store
     moe = attn_case(torch, gen, 8, 32, 8, 16, 8, 128, F, moe_L, torch.float32,
                     None, pad_lanes=2)
-    run(f"phi3.5-moe decode B=8 MP=8 Hkv=8 D=128 F={F} L={moe_L}", moe, "float32",
-        exact_zero_rows=2)
+    run(f"phi3.5-moe decode B=8 MP=8 Hkv=8 D=128 F={F} L={moe_L} {plan(moe)}", moe,
+        "float32", exact_zero_rows=2)
+    # G = 20 > 16 (two blocks per KV head), P = 12 and D = 48 (idle lanes);
+    # P = 3, D = 18: tiles not 16-byte aligned, copied element by element
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for (B, H, Hkv, P, MP, D, window) in [(3, 40, 2, 12, 6, 48, 30),
+                                              (2, 6, 3, 3, 7, 18, None)]:
+            case = attn_case(torch, gen, B, H, Hkv, P, MP, D, 40, 2, dtype, window,
+                             pad_lanes=1)
+            run(f"B={B} H={H} Hkv={Hkv} P={P} MP={MP} D={D} window={window} "
+                f"{plan(case)}", case, dtype_name, exact_zero_rows=1)
     # the small sweeps of tests/test_kernels.py (length mode)
     for (B, H, Hkv, P, MP, D) in [(2, 4, 2, 8, 4, 32), (1, 8, 8, 16, 3, 64),
                                   (3, 4, 1, 8, 5, 16), (1, 16, 4, 32, 2, 128)]:
@@ -232,13 +287,21 @@ def check_paged_attention(torch, gen, F, L, moe_L, flush, fails):
         args = (case["q"], case["k_pages"], case["v_pages"], case["block_table"])
         kw = dict(page_pos=case["page_pos"], q_pos=case["q_pos"])
         nbytes, flops = attn_work(torch, case)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, str(case["q"].dtype).removeprefix("torch."))
         return dict(
             kernel_ms=time_ms(torch, lambda: pa.paged_attention(*args, **kw), flush),
             plain_ms=time_ms(torch, lambda: pa.paged_attention_plain(*args, **kw), flush),
             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=flops)
 
     t = timed(main)
+    # the same call with L2 warm (no flush), and the floor of this timing:
+    # one float filled, timed the same way
+    warm = torch.ones(1, device="cuda")
+    args = (main["q"], main["k_pages"], main["v_pages"], main["block_table"])
+    kw = dict(page_pos=main["page_pos"], q_pos=main["q_pos"])
+    t["warm_l2_ms"] = time_ms(torch, lambda: pa.paged_attention(*args, **kw), warm)
+    one = torch.empty(1, device="cuda")
+    t["timing_floor_ms"] = time_ms(torch, lambda: one.fill_(1.0), flush)
     f32 = [c for c in checks if c["dtype"] == "float32"]
     return {
         "name": "paged_attention",
@@ -254,9 +317,17 @@ def check_paged_attention(torch, gen, F, L, moe_L, flush, fails):
         "tolerance_bf16": TOL["bfloat16"],
         **t,
         "library_ms": None,
+        "plan": plan(main),
         "phi3_5_moe_decode": dict(
-            timed(moe), shape="q (8, 32, 128) f32, store[:, li] of "
+            timed(moe), plan=plan(moe), shape="q (8, 32, 128) f32, store[:, li] of "
             f"(F={F}, L={moe_L}, 8, 16, 128), block table (8, 8), 2 pad lanes"),
+        "no_split_B64": dict(
+            timed(ns1), plan=plan(ns1), shape="q (64, 32, 64) f32, store[:, li] of "
+            f"(F={F}, L={L}, 4, 16, 64), block table (64, 8), 3 pad lanes"),
+        "long_context_MP64": dict(
+            timed(long_ctx), plan=plan(long_ctx), shape="q (8, 32, 64) f32, store "
+            "(1025, 1, 4, 16, 64), block table (8, 64) of distinct frames, "
+            "1 pad entry a lane, 1 pad lane"),
         "checks": len(checks),
     }
 
@@ -552,19 +623,39 @@ def check_flash_attention(torch, gen, flush, fails):
     kb = (rand(1, 8, 512, 64), rand(1, 2, 512, 64), rand(1, 2, 512, 64))
     run("kernel_bench B=1 H=8 Hkv=2 S=512 D=64", *kb, True, None, "float32")
     timed_cases["kernel_bench"] = kb
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        # a ragged prompt: the last query tile and key tile hold one row
+        run("ragged B=1 H=8 Hkv=2 S=513 D=64", rand(1, 8, 513, 64, dtype=dtype),
+            rand(1, 2, 513, 64, dtype=dtype), rand(1, 2, 513, 64, dtype=dtype),
+            True, None, dtype_name)
+        # a width off the templates (zero-padded to 128), a window
+        run("padded B=2 H=4 Hkv=2 S=100 D=80 window=33",
+            rand(2, 4, 100, 80, dtype=dtype), rand(2, 2, 100, 80, dtype=dtype),
+            rand(2, 2, 100, 80, dtype=dtype), True, 33, dtype_name)
+    # phi3.5-moe's heads at a long prompt
+    long = (rand(1, 32, 2048, 128), rand(1, 8, 2048, 128), rand(1, 8, 2048, 128))
+    run("phi3.5-moe heads B=1 H=32 Hkv=8 S=2048 D=128", *long, True, None, "float32")
+    kb16 = tuple(t.to(torch.bfloat16) for t in kb)
+    run("kernel_bench bf16", *kb16, True, None, "bfloat16")
+    d96 = (rand(1, 8, 512, 96), rand(1, 2, 512, 96), rand(1, 2, 512, 96))
+    run("padded B=1 H=8 Hkv=2 S=512 D=96", *d96, True, None, "float32")
+    # rows 4 bytes off 16-byte alignment: the general, element-by-element loader
+    odd = tuple(torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape) for t in kb)
+    run("unaligned rows B=1 H=8 Hkv=2 S=512 D=64", *odd, True, None, "float32")
 
-    def timed(q, k, v):
+    def timed(q, k, v, iters=50):
         nbytes, flops = flash_work(torch, q, k, True, None)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, str(q.dtype).removeprefix("torch."))
         lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
         want = fa.flash_attention_plain(q, k, v)
         return dict(
-            kernel_ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), flush),
-            plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(q, k, v), flush),
+            kernel_ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), flush, iters),
+            plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(q, k, v), flush,
+                             iters),
             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=flops,
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), flush),
-            library_max_abs_err=(lib - want).abs().max().item())
+                q, k, v, is_causal=True, enable_gqa=True), flush, iters),
+            library_max_abs_err=(lib.float() - want.float()).abs().max().item())
 
     f32 = [c for c in checks if c["dtype"] == "float32"]
     return {
@@ -581,6 +672,10 @@ def check_flash_attention(torch, gen, flush, fails):
         **timed(*timed_cases["phi3.5-moe prefill"]),
         "tinyllama_prefill_D64_Hkv4": timed(*timed_cases["tinyllama-1.1b prefill"]),
         "kernel_bench_S512_D64_Hkv2": timed(*kb),
+        "phi3_5_heads_S2048_D128_Hkv8": timed(*long, iters=10),
+        "bf16_S512_D64_Hkv2": timed(*kb16),
+        "padded_S512_D96_Hkv2": timed(*d96),
+        "general_path_unaligned_S512_D64_Hkv2": timed(*odd),
         "checks": len(checks),
     }
 

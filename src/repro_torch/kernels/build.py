@@ -134,6 +134,14 @@ def library(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     return lib
 
 
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device: the kernels size their
+    grids to cover the card."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
     if code != 0:

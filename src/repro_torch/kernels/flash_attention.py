@@ -8,10 +8,14 @@ or before ``i - window``.  The result is ``(B, H, S, D)`` in q's type.
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu`` on the
 current CUDA stream and counts its launches in
-``flash_attention.launches``.  It takes the batch, head and position
-strides of q, k and v, so a transposed view such as the engine's
-``(B, S, H, D) → (B, H, S, D)`` prefill projections is read in place
-with no copy; only the last dimension must be contiguous.
+``flash_attention.launches``.  The kernel keeps float32 register tiles
+of the scores and the output, streams 64-key tiles through a two-stage
+cp.async ring, and picks its query tile (64, 32 or 16 rows) from the
+grid's size against the card's SM count (:func:`build.sm_count`), so a
+short prompt still spreads over the card.  It takes the batch, head and
+position strides of q, k and v, so a transposed view such as the
+engine's ``(B, S, H, D) → (B, H, S, D)`` prefill projections is read in
+place with no copy; only the last dimension must be contiguous.
 :func:`flash_attention_plain` (a port of ``repro/kernels/ref.py:12-37``)
 is what ``kernels.ops`` runs for a CPU tensor.
 """
@@ -33,7 +37,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.flash_attention.argtypes = (
-        [I, P, P, P, P] + [I] * 6 + [I64] * 9 + [ctypes.c_float, I, I, I, P]
+        [I, P, P, P, P] + [I] * 6 + [I64] * 9 + [ctypes.c_float, I, I, I, I, P]
     )
     lib.flash_attention.restype = I
 
@@ -81,7 +85,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), B, H, Hkv, S, T, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(scale), int(causal), int(window is not None), int(window or 0),
-            stream,
+            build.sm_count(q.device), stream,
         )
     build.check(lib, code, "flash_attention")
     flash_attention.launches += 1

@@ -14,19 +14,28 @@ block table of frame ids into ``k_pages``/``v_pages`` of shape
 
 :func:`paged_attention` launches ``csrc/paged_attention.cu`` on the
 current CUDA stream and counts its launches in
-``paged_attention.launches``.  The store may be a per-layer view
-``store[:, li]`` of an ``(F, L, Hkv, P, D)`` store: the kernel takes the
-frame stride, so the view is read in place and never copied; only its
-inner ``(Hkv, P, D)`` block has to be contiguous.
-:func:`paged_attention_plain` (a port of ``repro/kernels/ref.py:40-78``)
-is what ``kernels.ops`` runs for a CPU tensor.
+``paged_attention.launches`` (one per call).  The kernel splits each
+sequence's block table into ``NS`` runs of ``pps`` pages
+(:func:`split_plan`, from ``B·Hkv``, ``MP`` and the card's SM count), one
+block per (KV head, sequence, split), so a decode batch of a few
+sequences still fills the card; ``NS = 1`` for ``B·Hkv`` of at least one
+block per SM.  With ``NS > 1`` each split writes its ``(m, l, acc)`` in
+float32 to scratch this wrapper allocates with ``torch.empty``, and the
+last block of each (sequence, head), found through a per-stream counter
+buffer that the kernel leaves at zero, combines them with the kernel's
+guards.  The store may be a per-layer view ``store[:, li]`` of an ``(F,
+L, Hkv, P, D)`` store: the kernel takes the frame stride, so the view is
+read in place and never copied; only its inner ``(Hkv, P, D)`` block has
+to be contiguous.  :func:`paged_attention_plain` (a port of
+``repro/kernels/ref.py:40-78``) is what ``kernels.ops`` runs for a CPU
+tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,6 +44,8 @@ from repro_torch.kernels import build
 # Pad entries in position-mode block tables use this page start: every
 # slot position exceeds any reachable q_pos, so the page masks out.
 PAD_PAGE_POS = 1 << 30
+MAX_HEAD_DIM = 256
+MAX_WARPS = 16  # query heads a block takes: one warp each
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -42,9 +53,42 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.paged_attention.argtypes = (
-        [I] + [P] * 8 + [I] * 6 + [I64, I64, ctypes.c_float, I, I, P]
+        [I] + [P] * 10 + [I] * 10 + [I64, I64, ctypes.c_float, I, I, P]
     )
     lib.paged_attention.restype = I
+
+
+def split_plan(B: int, Hkv: int, G: int, MP: int, sms: int) -> Tuple[int, int, int, int]:
+    """Grid of the kernel → ``(GC, NW, NS, pps)``.
+
+    A block takes ``NW`` of a KV head's ``G`` query heads (``GC`` blocks
+    per head, 1 unless ``G > 16``) and split ``s`` of a sequence's block
+    table, entries ``[s·pps, min(MP, (s+1)·pps))``.  With at least one
+    block per SM and no split there is ``NS = 1``; below that the table
+    is split into up to ``MP`` runs, aiming at two blocks per SM, so
+    more pages are in flight at once.
+    """
+    GC = -(-G // MAX_WARPS)
+    NW = -(-G // GC)
+    blocks = B * Hkv * GC
+    if blocks >= sms or MP <= 1:
+        return GC, NW, 1, max(MP, 1)
+    want = min(MP, -(-2 * sms // blocks))
+    pps = -(-MP // want)
+    return GC, NW, -(-MP // pps), pps
+
+
+# per (device, stream): int32 counters the kernel's last blocks reset to 0
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf
 
 
 def _check_mode(lengths, page_pos, q_pos, window) -> bool:
@@ -95,6 +139,8 @@ def paged_attention(
             f"paged_attention: q {tuple(q.shape)} does not fit pages "
             f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}"
         )
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention: head_dim {D} > {MAX_HEAD_DIM}")
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError("paged_attention: q, k_pages and v_pages must all be "
                          "float32 or all bfloat16")
@@ -118,16 +164,26 @@ def paged_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:  # nothing to launch, so nothing to count
         return out
+    G = H // Hkv
+    GC, NW, NS, pps = split_plan(B, Hkv, G, MP, build.sm_count(q.device))
     lib = build.library("paged_attention", _bind)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part = counters = None
+        if NS > 1:
+            part = torch.empty(B * Hkv * GC * NS * NW * (D + 2),
+                               dtype=torch.float32, device=q.device)
+            counters = _counter_buffer(q.device, stream, B * Hkv * GC)
         code = lib.paged_attention(
             _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             bt.data_ptr(),
             None if pos_mode else lengths.data_ptr(),
             page_pos.data_ptr() if pos_mode else None,
             q_pos.data_ptr() if pos_mode else None,
-            out.data_ptr(), B, MP, Hkv, H // Hkv, P, D,
+            out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            B, MP, Hkv, G, P, D, GC, NW, NS, pps,
             k_pages.stride(0), v_pages.stride(0), float(scale),
             int(window is not None), int(window or 0), stream,
         )

@@ -9,6 +9,8 @@ from a seed and handed to both frameworks.  The CUDA kernels themselves
 run only on the card (``chip_smoke.py``).
 """
 
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -20,10 +22,11 @@ from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: 
 from repro.kernels.page_migrate import page_gather as jax_gather  # noqa: E402
 from repro.kernels.page_migrate import page_scatter as jax_scatter  # noqa: E402
 from repro.kernels.paged_attention import paged_attention as jax_paged  # noqa: E402
+from repro.kernels.ref import paged_attention_ref  # noqa: E402
 from repro.kernels.router_topk import router_topk as jax_router  # noqa: E402
 from repro_torch.kernels import ops, page_migrate  # noqa: E402
 from repro_torch.models.attention import reference_attention  # noqa: E402
-from repro_torch.kernels.paged_attention import PAD_PAGE_POS  # noqa: E402
+from repro_torch.kernels.paged_attention import PAD_PAGE_POS, split_plan  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -281,3 +284,115 @@ def test_copy_kernels_refuse_misaligned_frames(op, fault):
                                                               store[:2])}[op]
     with pytest.raises(ValueError, match="16-byte aligned"):
         call()
+
+
+# --------------------------------------------------------------------- #
+# The paged kernel's split over pages (flash-decoding): each split of
+# the block table gives (m, l, acc) per query head, and the last block
+# of each (sequence, head) combines them.  The algebra, in plain torch.
+def split_partials(q, kp, vp, bt, valid, scale, NS, pps):
+    """Per-split ``m, l (B, H, NS)`` and ``acc (B, H, NS, D)``, the
+    kernel's guards: a split with no valid slot gives m = -inf, l = 0,
+    acc = 0."""
+    B, H, D = q.shape
+    _, Hkv, P, _ = kp.shape
+    MP = bt.shape[1]
+    kg = kp[bt.long()].movedim(2, 1).reshape(B, Hkv, MP * P, D)
+    vg = vp[bt.long()].movedim(2, 1).reshape(B, Hkv, MP * P, D)
+    s = torch.einsum("bhgd,bhtd->bhgt", q.reshape(B, Hkv, H // Hkv, D) * scale, kg)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    ms, ls, accs = [], [], []
+    for sp in range(NS):
+        lo, hi = sp * pps * P, min(MP, (sp + 1) * pps) * P
+        ss = s[..., lo:hi]
+        m = ss.max(dim=-1).values
+        m_safe = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+        p = torch.where(ss == float("-inf"), torch.zeros_like(ss),
+                        torch.exp(ss - m_safe[..., None]))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgt,bhtd->bhgd", p, vg[:, :, lo:hi]))
+    return (torch.stack(ms, -1).reshape(B, H, NS), torch.stack(ls, -1).reshape(B, H, NS),
+            torch.stack(accs, -2).reshape(B, H, NS, D))
+
+
+def combine_splits(m, l, acc):
+    """Rescale each split to the row's maximum and sum: a split at
+    m = -inf weighs 0, and l is clamped at 1e-20, so a row whose splits
+    are all masked gives exactly 0."""
+    M = m.max(dim=-1, keepdim=True).values
+    w = torch.where(m == float("-inf"), torch.zeros_like(m), torch.exp(m - M))
+    return (w[..., None] * acc).sum(-2) / (w * l).sum(-1).clamp_min(1e-20)[..., None]
+
+
+@pytest.mark.parametrize("NS", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", ["pad_pages", "window", "pad_lane", "length"])
+def test_paged_attention_split_combine(case, NS):
+    """Splits of the (B, MP=8) block table, combined, equal the plain
+    version and JAX's ``paged_attention_ref`` (``repro/kernels/ref.py:40``):
+    with whole splits masked by pad pages or by a window, with a lane
+    whose every entry is a pad page (exact zeros), and in length mode."""
+    B, H, Hkv, P, MP, D, F = 3, 8, 2, 4, 8, 16, 20
+    rng, q, kp, vp, bt = attn_inputs(NS * 7 + len(case), B, H, Hkv, P, MP, D, F,
+                                     "float32")
+    pps = -(-MP // NS)
+    NS = -(-MP // pps)  # NS = 3 → runs of 3, 3, 2 pages
+    kw_t, kw_j = {}, {}
+    if case == "length":
+        lengths = np.asarray([5, 32, 17], np.int32)
+        valid = torch.arange(MP * P)[None, :] < torch.from_numpy(lengths)[:, None].long()
+        kw_j["lengths"], kw_t["lengths"] = ints(lengths)
+    else:
+        page_pos = np.tile(np.arange(MP, dtype=np.int32) * P, (B, 1))
+        q_pos = np.full(B, MP * P - 2, np.int32)
+        window = 9 if case == "window" else None  # masks pages 0-4 whole
+        if case == "pad_pages":
+            page_pos[:, 4:] = PAD_PAGE_POS  # the last half of every lane
+        if case == "pad_lane":
+            page_pos[2] = PAD_PAGE_POS
+            q_pos[2] = 0
+        pos = torch.from_numpy(page_pos).long()[:, :, None] + torch.arange(P)
+        qp = torch.from_numpy(q_pos).long()[:, None, None]
+        valid = pos <= qp
+        if window is not None:
+            valid &= pos > qp - window
+        valid = valid.reshape(B, MP * P)
+        kw_j["page_pos"], kw_t["page_pos"] = ints(page_pos)
+        kw_j["q_pos"], kw_t["q_pos"] = ints(q_pos)
+        kw_j["window"] = kw_t["window"] = window
+    m, l, acc = split_partials(q[1], kp[1], vp[1], bt[1], valid, 1.0 / math.sqrt(D),
+                               NS, pps)
+    if case in ("pad_pages", "window") and NS > 1:
+        assert (m == float("-inf")).any(), "no split was masked whole"
+    got = combine_splits(m, l, acc)
+    want_t = ops.paged_attention(q[1], kp[1], vp[1], bt[1], **kw_t)
+    want_j = paged_attention_ref(q[0], kp[0], vp[0], bt[0], **kw_j)
+    assert torch.isfinite(got).all()
+    assert_close(got, want_t.numpy(), "float32")
+    assert_close(got, want_j, "float32")
+    if case == "pad_lane":
+        assert (got[2] == 0).all()
+
+
+@pytest.mark.parametrize("B,Hkv,G,MP", [
+    (8, 4, 8, 8),    # tinyllama-1.1b decode: 8 splits of one page
+    (8, 8, 4, 8),    # phi3.5-moe decode
+    (8, 4, 8, 64),   # long context
+    (3, 2, 20, 6),   # G > 16: two blocks per KV head
+    (33, 4, 8, 8),   # B·Hkv = 132, one block per SM: no split
+    (64, 4, 8, 8),   # B·Hkv = 256
+    (1, 1, 1, 1), (2, 1, 4, 0),
+])
+def test_paged_attention_split_plan_covers_every_page_once(B, Hkv, G, MP):
+    sms = 132
+    GC, NW, NS, pps = split_plan(B, Hkv, G, MP, sms)
+    assert GC * NW >= G and NW <= 16 and (GC - 1) * NW < G
+    runs = [range(s * pps, min(MP, (s + 1) * pps)) for s in range(NS)]
+    assert sorted(i for r in runs for i in r) == list(range(MP))
+    assert all(len(r) > 0 for r in runs) or MP == 0
+    if B * Hkv * GC >= sms or MP <= 1:
+        assert NS == 1
+    else:
+        assert 1 < NS <= MP
+    if (B, Hkv, MP) == (8, 4, 8):
+        assert (NS, pps) == (8, 1)
