@@ -17,9 +17,12 @@ into ``build/``) and runs these phases:
    window that masks whole splits, pad lanes exactly 0, B=64 where
    there is no split, G=20 over two blocks a head, tiles copied element
    by element) and a long context of MP=64 distinct pages; gather and
-   scatter of 64 frames with trash-frame padding, exact, at both serve
-   paths' frames (tinyllama (22, 4, 16, 64), phi3.5-moe (8, 8, 16,
-   128)); ``router_topk`` at the MoE serve
+   scatter, exact, at both serve paths' frames (tinyllama (22, 4, 16,
+   64), phi3.5-moe (8, 8, 16, 128)), over one store and over a (K, V)
+   pair, n = 1, 7, 14, 64 and 300 pairs (300 takes two launches), a
+   frame that is not a multiple of the kernel's 8 KB chunk, duplicate
+   targets with identical payloads, frames on the card refused;
+   ``router_topk`` at the MoE serve
    shapes (T=8 decode, T=47 prefill, E=16, k=2), rows of exact ties and
    T=4096, E=64, k=6; one full-width phi3.5-moe MoE layer on the card
    against the CPU at its decode and prefill shapes, where experts
@@ -30,19 +33,26 @@ into ``build/``) and runs these phases:
    16-byte alignment (the element-by-element loader); plus the
    small sweeps of ``tests/test_kernels.py``.  Times each kernel, its
    plain version and, where one exists, the one PyTorch call that
-   computes the same function.
+   computes the same function (the copies in phase 4).
 3. **Serve** — full-width tinyllama-1.1b, then full-width phi3.5-moe
    cut to 8 of its 32 layers (42.7 GB of float32 weights), each with
    seeded random weights through ``ServingEngine`` on ``cuda``: 8
    requests, prompt 48, 32 new tokens each, with demotions and
    promotions.  Launch counts are set to 0 before each run and read
    after it; each kernel of the path must have launched exactly as
-   often as the path calls it.  Then 8 decode steps of a fresh batch
-   are traced with ``torch.profiler`` (device busy time, idle share and
+   often as the path calls it (the copies once a flush and once for the
+   cache's prewarm), and placement must equal ``PLACEMENT``.  The
+   cache's histogram of pairs per flush is kept.  Then 8 decode steps
+   of a fresh batch are traced with ``torch.profiler`` (device busy time, idle share and
    top device ops per step; trace in ``build/profile/<arch>/``).  Last,
    each smoke-size config runs one scripted lifecycle on ``cuda`` and
    on ``cpu``; tokens, stats, VmStat, tiers and page types must be
    equal.
+4. **Copies** — ``page_gather`` and ``page_scatter`` timed at each serve
+   run's median flush (pairs × both stores, at its frame) and at 64
+   live frames of one store, beside their plain versions, the library
+   calls (``index_select`` / ``index_copy_`` once per store) and the
+   bytes bound; and one gather then scatter, as a flush runs them.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -67,6 +77,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 # outside the tensor cores, bfloat16 on them
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:18
+# each serve run's placement: the same for both archs, and the port's
+# kernels must not change it
+PLACEMENT = {"local_fraction": 0.6205357142857143, "demoted": 208, "promoted": 205}
 
 
 def fail(msg: str) -> None:
@@ -338,86 +351,146 @@ def frame_shape(cfg, ecfg):
     return (cfg.n_layers, a.n_kv_heads, ecfg.page_size, a.head_dim)
 
 
-def check_page_migrate(torch, gen, F, frame, flush, fails, sweeps=True):
-    """Gather and scatter of 64 frames of ``frame = (L, Hkv, P, D)`` over a
-    store of ``F`` frames, against ``index_select``/``index_copy_``
-    (exact), then timed; ``sweeps`` adds the small round trips of
-    ``tests/test_kernels.py``."""
+def check_page_migrate(torch, gen, F, frame, fails, sweeps=True):
+    """Gather and scatter of ``frame = (L, Hkv, P, D)`` frames over one store
+    and over a (K, V) pair of stores of ``F`` frames (more where a case
+    needs more distinct frames), against ``index_select``/``index_copy_``:
+    exact, for n = 1, 7, 14, 64 and 300 pairs (300 takes two launches of
+    ``MAX_PAIRS``), a frame size that is not a multiple of the kernel's
+    8 KB chunk, duplicate targets with identical payloads, frames on the
+    card refused; ``sweeps`` adds the small round trips of
+    ``tests/test_kernels.py``.  Returns the number of checks."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels import page_migrate as pm
 
-    N, real = 64, 16
+    checks = 0
+
+    def host(t):
+        return t.to(device="cpu", dtype=torch.int32)
+
+    def run(name, stores, src, dst):
+        """One gather of ``src`` and one scatter of it into ``dst`` (host
+        int32 frames), kernel against plain, exact."""
+        nonlocal checks
+        one = len(stores) == 1
+        arg = stores[0] if one else tuple(stores)
+        g = ops.page_gather(arg, src, impl="kernel")
+        torch.cuda.synchronize()
+        g_ref = ops.page_gather(arg, src, impl="ref")
+        outs = [s.clone() for s in stores]
+        refs = [s.clone() for s in stores]
+        ops.page_scatter(outs[0] if one else tuple(outs), dst, g, impl="kernel")
+        torch.cuda.synchronize()
+        ops.page_scatter(refs[0] if one else tuple(refs), dst, g_ref, impl="ref")
+        checks += 2
+        if not torch.equal(g, g_ref):
+            fails.append(f"page_gather {name} differs from index_select: "
+                         f"{(g - g_ref).abs().max().item()}")
+        if not all(torch.equal(a, b) for a, b in zip(outs, refs)):
+            fails.append(f"page_scatter {name} differs from index_copy_")
+
+    for n in (1, 7, 14, 64, 300):
+        Fn = max(F, n + 1)  # distinct targets: 300 pairs need 301 frames
+        stores = [torch.randn((Fn,) + tuple(frame), generator=gen, device="cuda")
+                  for _ in range(2)]
+        src = host(torch.randperm(Fn - 1, generator=gen, device="cuda")[:n])
+        dst = host(torch.randperm(Fn - 1, generator=gen, device="cuda")[:n])
+        for S in (1, 2):
+            run(f"frame {tuple(frame)} n={n} stores={S} F={Fn}", stores[:S], src, dst)
+        del stores
+    # a frame of four 8 KB chunks and a 48-byte tail
+    tail = [torch.randn((40, 2 * 4096 + 12), generator=gen, device="cuda")
+            for _ in range(2)]
+    src = host(torch.randperm(39, generator=gen, device="cuda")[:14])
+    dst = host(torch.randperm(39, generator=gen, device="cuda")[:14])
+    run("frame of 32,816 B (4 chunks + 48 B) n=14 stores=2", tail, src, dst)
+    # duplicate targets with identical payloads: trash-frame self-copies
+    stores = [torch.randn((F,) + tuple(frame), generator=gen, device="cuda")
+              for _ in range(2)]
     trash = F - 1
-    store = torch.randn((F,) + tuple(frame), generator=gen, device="cuda")
-    perm = torch.randperm(F - 1, generator=gen, device="cuda")
-    src = torch.full((N,), trash, dtype=torch.int32, device="cuda")
-    dst = src.clone()
-    src[:real] = perm[:real].to(torch.int32)
-    dst[:real] = perm[real:2 * real].to(torch.int32)
-    frame_bytes = store[0].numel() * store.element_size()
-
-    g_kernel = ops.page_gather(store, src, impl="kernel")
-    torch.cuda.synchronize()
-    g_plain = ops.page_gather(store, src, impl="ref")
-    gather_err = (g_kernel - g_plain).abs().max().item()
-    if not torch.equal(g_kernel, g_plain):
-        fails.append(f"page_gather at frame {frame} differs from index_select: "
-                     f"{gather_err}")
-    s_kernel = ops.page_scatter(store.clone(), dst, g_kernel, impl="kernel")
-    torch.cuda.synchronize()
-    s_plain = ops.page_scatter(store.clone(), dst, g_plain, impl="ref")
-    scatter_err = (s_kernel - s_plain).abs().max().item()
-    if not torch.equal(s_kernel, s_plain):
-        fails.append(f"page_scatter at frame {frame} differs from index_copy_: "
-                     f"{scatter_err}")
+    src = torch.tensor([2, 5] + [trash] * 5, dtype=torch.int32)
+    dst = torch.tensor([6, 1] + [trash] * 5, dtype=torch.int32)
+    run(f"frame {tuple(frame)} duplicate trash targets stores=2", stores, src, dst)
+    # frames on the card would need a device->host sync: refused
+    try:
+        ops.page_gather(tuple(stores), src.cuda(), impl="kernel")
+        fails.append("page_gather took frames on the card")
+    except ValueError:
+        checks += 1
+    del stores
     # small sweeps of tests/test_kernels.py:123-141
     for n, f, seed in [(1, 8, 0), (4, 16, 7), (8, 24, 42), (5, 23, 31)] if sweeps else []:
         g = torch.Generator(device="cuda").manual_seed(seed)
         s = torch.randn((f, 2, 4, 8), generator=g, device="cuda")
-        idx = torch.randperm(f, generator=g, device="cuda")[:n].to(torch.int32)
+        idx = host(torch.randperm(f, generator=g, device="cuda")[:n])
         out = ops.page_gather(s, idx, impl="kernel")
         back = ops.page_scatter(torch.zeros_like(s), idx, out, impl="kernel")
         torch.cuda.synchronize()
-        want = torch.zeros_like(s).index_copy_(0, idx.long(), s.index_select(0, idx.long()))
-        if not (torch.equal(out, s.index_select(0, idx.long())) and torch.equal(back, want)):
+        il = idx.cuda().long()
+        want = torch.zeros_like(s).index_copy_(0, il, s.index_select(0, il))
+        checks += 1
+        if not (torch.equal(out, s.index_select(0, il)) and torch.equal(back, want)):
             fails.append(f"page_gather/page_scatter round trip n={n} f={f}")
+    return checks
 
-    uniq_src = len(set(src.tolist()))
-    uniq_dst = len(set(dst.tolist()))
-    work, scratch = store.clone(), store.clone()
-    src_l, dst_l = src.long(), dst.long()
-    rows = []
-    for name, kernel, plain, library, nbytes, line in (
-        ("page_gather",
-         lambda: pm.page_gather(store, src),
-         lambda: pm.page_gather_plain(store, src),
-         lambda: store.index_select(0, src_l),
-         (uniq_src + N) * frame_bytes + N * 4,
-         "src/repro/kernels/page_migrate.py:47"),
-        ("page_scatter",
-         lambda: pm.page_scatter(work, dst, g_kernel),
-         lambda: pm.page_scatter_plain(scratch, dst, g_kernel),
-         lambda: scratch.index_copy_(0, dst_l, g_kernel),
-         2 * uniq_dst * frame_bytes + N * 4,
-         "src/repro/kernels/page_migrate.py:79"),
-    ):
+
+def median_pairs(hist) -> int:
+    """The median of a histogram of pairs per flush (the lower middle)."""
+    pairs = sorted(hist.elements())
+    return pairs[(len(pairs) - 1) // 2]
+
+
+def time_page_migrate(torch, gen, F, frame, pairs, flush):
+    """Times of one gather and one scatter at ``pairs`` live pairs over a
+    (K, V) pair of ``(F,) + frame`` stores (the flush's shape), and at 64
+    live frames of one store: kernel, plain version, library calls
+    (``index_select`` / ``index_copy_`` once per store), and the bytes
+    bound, each live byte read once and written once."""
+    from repro_torch.kernels import page_migrate as pm
+
+    stores = tuple(torch.randn((F,) + tuple(frame), generator=gen, device="cuda")
+                   for _ in range(2))
+    fb = stores[0][0].numel() * stores[0].element_size()
+    out = {}
+    for key, S, n in (("flush", 2, pairs), ("one_store_64_live", 1, 64)):
+        src = torch.randperm(F - 1, generator=gen, device="cuda")[:n].to(torch.int32)
+        dst = torch.randperm(F - 1, generator=gen, device="cuda")[:n].to(torch.int32)
+        src_h, dst_h = src.cpu(), dst.cpu()
+        src_l, dst_l = src.long(), dst.long()
+        arg = stores[0] if S == 1 else stores
+        staged = pm.page_gather(arg, src_h)
+        work = tuple(s.clone() for s in stores[:S])
+        warg = work[0] if S == 1 else work
+        pages = staged if S > 1 else staged[None]
+        nbytes = 2 * S * n * fb
         b_ms, b_by = bound(nbytes, 0.0)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/page_migrate.cu",
-            "replaces": line,
-            "shape": f"N={N} frames ({real} real + {N - real} trash padding) of "
-                     f"(L, Hkv, P, D) = {tuple(frame)} f32, {frame_bytes} B each, "
-                     f"store F={F}",
-            "max_abs_err": gather_err if name == "page_gather" else scatter_err,
-            "tolerance": 0.0,
-            "kernel_ms": time_ms(torch, kernel, flush),
-            "plain_ms": time_ms(torch, plain, flush),
-            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
-            "bound_ms_padded_width": 2 * N * frame_bytes / HBM_BYTES_PER_S * 1e3,
-            "library_ms": time_ms(torch, library, flush),
-        })
-    return rows
+        shape = (f"{n} pairs x {S} store{'s' if S > 1 else ''} of (L, Hkv, P, D) = "
+                 f"{tuple(frame)} f32, {fb} B a frame, store F={F}")
+        out[key] = {
+            "page_gather": dict(
+                shape=shape,
+                kernel_ms=time_ms(torch, lambda: pm.page_gather(arg, src_h), flush),
+                # the plain version given the frames on the card: its device work
+                plain_ms=time_ms(torch, lambda: pm.page_gather_plain(arg, src), flush),
+                library_ms=time_ms(torch, lambda: [s.index_select(0, src_l)
+                                                   for s in stores[:S]], flush),
+                library_call=" + ".join(["index_select"] * S),
+                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes),
+            "page_scatter": dict(
+                shape=shape,
+                kernel_ms=time_ms(torch, lambda: pm.page_scatter(warg, dst_h, staged),
+                                  flush),
+                plain_ms=time_ms(torch, lambda: pm.page_scatter_plain(warg, dst, staged),
+                                 flush),
+                library_ms=time_ms(torch, lambda: [w.index_copy_(0, dst_l, p)
+                                                   for w, p in zip(work, pages)], flush),
+                library_call=" + ".join(["index_copy_"] * S),
+                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes),
+        }
+        if key == "flush":  # the flush as it runs: gather, then scatter
+            out[key]["gather_then_scatter_ms"] = time_ms(
+                torch, lambda: pm.page_scatter(warg, dst_h, pm.page_gather(arg, src_h)),
+                flush)
+    return out
 
 
 def check_moe_fwd(torch, cfg, fails):
@@ -487,9 +560,10 @@ def check_empty_inputs(torch, fails):
                         torch.empty((0, 2), dtype=torch.int32, device=dev),
                         torch.empty((0,), dtype=torch.int32, device=dev), impl="kernel")
     store = torch.zeros((3, 2, 16, 64), device=dev)
-    none = torch.empty((0,), dtype=torch.int32, device=dev)
-    pages = ops.page_gather(store, none, impl="kernel")
-    ops.page_scatter(store, none, pages, impl="kernel")
+    none = torch.empty((0,), dtype=torch.int32)  # frames live on the host
+    for arg in (store, (store, store.clone())):
+        pages = ops.page_gather(arg, none, impl="kernel")
+        ops.page_scatter(arg, none, pages, impl="kernel")
     torch.cuda.synchronize()
     counted = {k: n for k, n in ops.launch_counts().items() if n}
     if counted:
@@ -728,42 +802,68 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     flush = torch.ones(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
     rows = [check_paged_attention(torch, gen, F, cfg.n_layers, MOE_LAYERS, flush, fails)]
-    # the copy kernels at each serve path's frame, the phi3.5 rows beside
-    # tinyllama's as paged_attention's phi3_5_moe_decode is
+    # the copy kernels at each serve path's frame; timed after phase 3, at
+    # the flush sizes the serve runs give them
     moe_frame = frame_shape(moe_cfg, ecfg)
-    migrate = check_page_migrate(torch, gen, F, frame_shape(cfg, ecfg), flush, fails)
-    for row, moe_row in zip(migrate, check_page_migrate(
-            torch, gen, F, moe_frame, flush, fails, sweeps=False)):
-        row["phi3_5_moe_serve"] = {k: moe_row[k] for k in (
-            "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-            "bound_bytes", "bound_ms_padded_width", "library_ms")}
-    rows += migrate
+    frames = {"tinyllama-1.1b": frame_shape(cfg, ecfg), MOE_ARCH: moe_frame}
+    copy_checks = (check_page_migrate(torch, gen, F, frames["tinyllama-1.1b"], fails)
+                   + check_page_migrate(torch, gen, F, moe_frame, fails, sweeps=False))
+    log(f"[kernels] page_gather/page_scatter: {copy_checks} exact checks")
     rows.append(check_router_topk(torch, gen, flush, fails))
     rows[-1]["moe_fwd_cuda_vs_cpu"] = check_moe_fwd(torch, moe_cfg, fails)
     check_empty_inputs(torch, fails)
     rows.append(check_flash_attention(torch, gen, flush, fails))
     del flush
-    for r in rows:
-        log(f"[kernels] {r['name']}: max_abs_err {r['max_abs_err']} "
-            f"(tol {r['tolerance']}) kernel {r['kernel_ms']:.4f} ms plain "
-            f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.6f} ms "
-            f"({r['bound_by']}) library {r['library_ms']}")
     if fails:
         fail("; ".join(fails))
 
     # ---------------- phase 3: serve ---------------------------------- #
-    launches_by_path = {}
+    launches_by_path, flush_pairs = {}, {}
     for name, c in (("tinyllama-1.1b", cfg), (MOE_ARCH, moe_cfg)):
         if c is moe_cfg:
             log(f"[serve] {MOE_ARCH}: depth cut from {moe_full.n_layers} to "
                 f"{moe_cfg.n_layers} layers ({param_bytes(moe_cfg) / 1e9:.1f} GB of "
                 f"float32 weights; all {moe_full.n_layers} would be "
                 f"{param_bytes(moe_full) / 1e9:.1f} GB), widths as published")
-        launches_by_path[name] = serve_phase(torch, name, c, ecfg)
+        launches_by_path[name], flush_pairs[name] = serve_phase(torch, name, c, ecfg)
 
     # smoke configs: one lifecycle on cuda and on cpu must agree exactly
     for arch in ("tinyllama-1.1b", MOE_ARCH):
         smoke_lifecycle(torch, arch)
+
+    # ---------------- phase 4: the copies at the serve runs' flushes --- #
+    flush = torch.ones(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    copy_times = {}
+    for name in frames:
+        med = median_pairs(flush_pairs[name])
+        copy_times[name] = time_page_migrate(torch, gen, F, frames[name], med, flush)
+        log(f"[kernels] copies at {name}'s median flush of {med} pairs: "
+            f"{json.dumps(copy_times[name])}")
+    del flush
+    for kname, line in (("page_gather", "src/repro/kernels/page_migrate.py:47"),
+                        ("page_scatter", "src/repro/kernels/page_migrate.py:79")):
+        main_t = copy_times["tinyllama-1.1b"]
+        moe_t = copy_times[MOE_ARCH]
+        rows.insert(1 if kname == "page_gather" else 2, {
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/page_migrate.cu",
+            "replaces": line,
+            "max_abs_err": 0.0, "tolerance": 0.0, "exact_checks": copy_checks,
+            **main_t["flush"][kname],
+            "flush_pairs_histogram": {
+                n: {str(k): v for k, v in sorted(h.items())} for n, h in flush_pairs.items()},
+            "gather_then_scatter_ms": main_t["flush"]["gather_then_scatter_ms"],
+            "one_store_64_live": main_t["one_store_64_live"][kname],
+            "phi3_5_moe_serve": dict(
+                moe_t["flush"][kname],
+                gather_then_scatter_ms=moe_t["flush"]["gather_then_scatter_ms"],
+                one_store_64_live=moe_t["one_store_64_live"][kname]),
+        })
+    for r in rows:
+        log(f"[kernels] {r['name']}: max_abs_err {r['max_abs_err']} "
+            f"(tol {r['tolerance']}) kernel {r['kernel_ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}) library {r['library_ms']}")
 
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in launches_by_path.items()}
@@ -782,6 +882,7 @@ def serve_phase(torch, name, cfg, ecfg):
     just before and read just after; check the counts, tiering, tokens
     and the pool's invariants.  Frees the weights before it returns."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.page_migrate import MAX_PAIRS
     from repro_torch.launch.serve import profile_decode, serve
     from repro_torch.models.model import init_params
 
@@ -818,23 +919,32 @@ def serve_phase(torch, name, cfg, ecfg):
     for kname, n in expected.items():
         if launches[kname] != n:
             fail(f"{name}: {kname} launched {launches[kname]} times, expected {n}")
+    # the copies: one gather and one scatter a flush (a launch per
+    # MAX_PAIRS pairs), and the cache's one-frame prewarm
+    kv = res["engine"].kv
+    copies = 1 + sum(-(-n // MAX_PAIRS) * k for n, k in kv.flush_pairs.items())
     for kname in ("page_gather", "page_scatter"):
-        if launches[kname] <= 0:
-            fail(f"{name}: the serve phase never launched {kname}")
-    if stats["demoted"] <= 0 or stats["promoted"] <= 0:
-        fail(f"{name}: serve phase did not tier: {stats}")
+        if launches[kname] != copies:
+            fail(f"{name}: {kname} launched {launches[kname]} times, expected "
+                 f"{copies} ({kv.flushes} flushes + the prewarm)")
+    placement = {k: stats[k] for k in PLACEMENT}
+    if placement != PLACEMENT:
+        fail(f"{name}: placement {placement}, expected {PLACEMENT}")
     toks = [t for out in res["tokens"].values() for t in out]
     if len(toks) != requests * max_new or not all(0 <= t < cfg.vocab for t in toks):
         fail(f"{name}: serve phase produced malformed tokens")
-    res["engine"].kv.pool.check_invariants()
+    kv.pool.check_invariants()
+    flush_pairs = kv.flush_pairs.copy()
+    log(f"[serve] {name}: {kv.flushes} flushes, pairs per flush "
+        f"{dict(sorted(flush_pairs.items()))}")
     # where a decode step's time goes: 8 traced steps of a fresh batch
     prof = profile_decode(res["engine"], cfg.vocab, requests, prompt_len, 8,
                           str(ROOT / "build" / "profile" / name))
     log(f"[serve] {name} profile {json.dumps(prof)}")
-    del res, params
+    del res, params, kv
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, flush_pairs
 
 
 def smoke_lifecycle(torch, arch):

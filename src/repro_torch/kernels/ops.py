@@ -57,14 +57,18 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths=None, scale=None,
 
 
 def page_gather(src, frames, impl="auto"):
-    if _pick(impl, src) == "kernel":
+    """``src`` is one ``(F, ...)`` store or a tuple of them; ``frames`` a
+    1-D int32 CPU tensor (the kernel takes the indices by value)."""
+    first = src if isinstance(src, torch.Tensor) else src[0]
+    if _pick(impl, first) == "kernel":
         return _pm.page_gather(src, frames)
     return _pm.page_gather_plain(src, frames)
 
 
 def page_scatter(dst, frames, pages, impl="auto"):
-    """In place on ``dst``; returns it."""
-    if _pick(impl, dst) == "kernel":
+    """In place on ``dst`` (a store or a tuple of them); returns it."""
+    first = dst if isinstance(dst, torch.Tensor) else dst[0]
+    if _pick(impl, first) == "kernel":
         return _pm.page_scatter(dst, frames, pages)
     return _pm.page_scatter_plain(dst, frames, pages)
 

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core import TppConfig
 from repro_torch.kernels import build
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.model import ModelConfig, init_params, param_bytes
 from repro_torch.serving import EngineConfig, ServingEngine
 
@@ -139,6 +140,11 @@ def lifecycle_trace(eng: ServingEngine, vocab: int) -> Dict[str, Any]:
     }
 
 
+def _copy_launches() -> int:
+    counts = kernel_ops.launch_counts()
+    return counts["page_gather"] + counts["page_scatter"]
+
+
 def profile_decode(eng: ServingEngine, vocab: int, requests: int,
                    prompt_len: int, steps: int, out_dir: str,
                    seed: int = 1) -> Dict[str, Any]:
@@ -166,11 +172,13 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
     if eng.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize(eng.device)
+    flushes, copies = eng.kv.flushes, _copy_launches()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         wall = time.perf_counter() - t0
+    flushes, copies = eng.kv.flushes - flushes, _copy_launches() - copies
     ka = prof.key_averages()
     device_us = sum(e.self_device_time_total for e in ka
                     if e.device_type.name == "CUDA")
@@ -187,12 +195,16 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
     for name, fn in (("paged_attention", "paged_attention_kernel"),
                      ("router_topk", "router_topk_kernel"),
                      ("flash_attention", "flash_attention_kernel"),
-                     ("page_gather+page_scatter", "frame_copy_kernel")):
+                     ("page_gather+page_scatter", "page_copy_kernel")):
         evs = [e for e in ka if e.device_type.name == "CUDA" and fn in e.key]
         n = sum(e.count for e in evs)
         if n:
             us = sum(e.self_device_time_total for e in evs)
             own[name] = {"launches_per_step": n / steps, "us_per_launch": us / n}
+            if fn == "page_copy_kernel" and flushes:
+                # by the wrappers' count: the trace can miss a launch
+                own[name].update(flushes=flushes, launches_counted=copies,
+                                 us_per_flush=us / n * copies / flushes)
     return {
         "traced_steps": steps,
         "wall_ms_per_step": 1e3 * wall / steps,

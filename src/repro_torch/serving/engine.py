@@ -14,8 +14,11 @@ decode in one step:
 * per-step block tables of global frames, padded to power-of-two sizes,
   feed ``kernels.ops.paged_attention`` once per layer in position mode;
 * the new token's K/V lands in the store by an in-place indexed write,
-  page-key summaries accumulate in a device tensor, and migration
-  payloads move in staged ``page_gather``/``page_scatter`` batches.
+  page-key summaries accumulate in a device tensor, and the migrations
+  of a policy interval move in one ``page_gather`` and one
+  ``page_scatter`` over both stores, live frames only (the JAX engine
+  pads them with trash-frame copies for jit-shape stability; the CUDA
+  kernels need no fixed shape).
 
 The policy (TPP) receives each step's slow- and fast-tier page hits and
 migrates payloads through the cache's migration hook.

@@ -7,7 +7,7 @@ Counterpart of ``repro/serving/kv_cache.py`` over torch stores:
 * **frame space** — one global frame index range split by tier: frames
   ``[0, num_fast)`` are the fast tier, ``[num_fast, num_fast+num_slow)``
   the slow tier, and one extra **trash frame** at the end absorbs the
-  padded lanes of batched writes and copies.
+  padded lanes of batched writes and block tables.
 * **payload layout** — split K/V stores ``(F, L, Hkv, P, D)``:
   frame-major, so one ``page_gather``/``page_scatter`` moves a whole page
   across tiers, and the per-layer view ``store[:, li]`` feeds
@@ -16,18 +16,25 @@ Counterpart of ``repro/serving/kv_cache.py`` over torch stores:
   engine reports touches, TPP decides migrations, this class executes
   the payload copies.
 
-One policy interval's copies are staged and executed as one
-``page_gather``→``page_scatter`` pair per direction and store at the
-next payload access, all gathers before any scatter (the JAX cache's
-``staged_migration=True``; its eager per-page copies belong to the
-reference data plane, not ported yet).  Both run on the current CUDA
-stream in program order, which is what makes the gathers-first order
-hold on the card.  The stores are updated in place.
+One policy interval's copies are staged and executed at the next
+payload access as one ``page_gather`` over both stores (K and V) into
+one staging tensor, then one ``page_scatter`` of it back, demotions
+first in the frame list (the JAX cache's ``staged_migration=True``; its
+eager per-page copies belong to the reference data plane, not ported
+yet).  The gather runs before the scatter, on the current CUDA stream
+in program order, which keeps a frame freed by a demotion and claimed
+by a promotion in the same interval correct.  The stores are updated in
+place.  The frame list holds only the live copies: the JAX cache pads
+every batch with trash-frame self-copies to a power-of-two width so
+that its jit-compiled copies keep one shape, but a CUDA kernel has no
+shape-specialised compile, so the port moves no padding.  The frame
+indices stay on the host and reach the kernel by value.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -35,6 +42,11 @@ import torch
 
 from repro_torch.core import PagePool, PageType, Tier, TppConfig
 from repro_torch.kernels import ops as kernel_ops
+
+
+def _host_frames(frames: Sequence[int]) -> torch.Tensor:
+    """A frame list as the 1-D int32 CPU tensor the copy kernels read."""
+    return torch.from_numpy(np.asarray(frames, np.int32))
 
 
 def bucket(n: int) -> int:
@@ -98,21 +110,18 @@ class TieredKVCache:
         self._pending: List[_StagedCopy] = []
         self._pending_src: set = set()
         self._pending_dst: set = set()
-        # One shared staged-copy width, sized from the policy budgets (an
-        # interval batch cannot exceed them).  The prewarm builds and
-        # loads the copy kernels before the first flush on the serving
-        # path needs them.
-        self._flush_width = bucket(max(self.pool.config.demote_budget,
-                                       self.pool.config.promote_budget, 1))
-        idx = self._frames([self.trash_frame] * self._flush_width)
-        kernel_ops.page_scatter(
-            self.k_store, idx, kernel_ops.page_gather(self.k_store, idx))
-        kernel_ops.page_scatter(
-            self.v_store, idx, kernel_ops.page_gather(self.v_store, idx))
+        #: flushes that moved pages, and a histogram of the pairs each moved
+        self.flushes = 0
+        self.flush_pairs: Counter = Counter()
+        # Build and load the copy kernels before the first flush on the
+        # serving path needs them: a one-frame trash self-copy.
+        idx = _host_frames([self.trash_frame])
+        stores = (self.k_store, self.v_store)
+        kernel_ops.page_scatter(stores, idx, kernel_ops.page_gather(stores, idx))
 
     def _frames(self, frames: Sequence[int]) -> torch.Tensor:
         """Host frame list → int32 index tensor on the store's device."""
-        return torch.from_numpy(np.asarray(frames, np.int32)).to(self.device)
+        return _host_frames(frames).to(self.device)
 
     # ---------------------------------------------------------------- #
     # frame addressing
@@ -159,39 +168,28 @@ class TieredKVCache:
         self._pending_dst = {c.dst for c in self._pending}
 
     def flush_migrations(self) -> None:
-        """Execute the staged interval batch: one ``page_gather`` →
-        ``page_scatter`` per direction per store.
+        """Execute the staged interval batch: one ``page_gather`` of the
+        live source frames of both stores, then one ``page_scatter`` of
+        the staging into the target frames, demotions first.
 
         All gathers run before any scatter, so a frame freed by a
         demotion and immediately reclaimed by a promotion (or vice
-        versa) still sources the pre-interval payload.
+        versa) still sources the pre-interval payload.  Target frames
+        within a flush are distinct: a frame staged as a target is
+        occupied until the flush, and a page leaving it settles the
+        batch first (:meth:`_on_migrate`).
         """
         if not self._pending:
             return
         pending, self._pending = self._pending, []
         self._pending_src, self._pending_dst = set(), set()
-        # pad every batch to one shared power-of-two width via the trash
-        # frame (a self-copy of garbage)
-        self._flush_width = max(self._flush_width, bucket(max(
-            sum(c.demote for c in pending),
-            sum(not c.demote for c in pending),
-        )))
-        batches = []  # (dst_frames, staged_k, staged_v) — gather phase
-        for demote in (True, False):
-            group = [c for c in pending if c.demote == demote]
-            if not group:
-                continue
-            pad = [self.trash_frame] * (self._flush_width - len(group))
-            src = self._frames([c.src for c in group] + pad)
-            dst = self._frames([c.dst for c in group] + pad)
-            batches.append((
-                dst,
-                kernel_ops.page_gather(self.k_store, src),
-                kernel_ops.page_gather(self.v_store, src),
-            ))
-        for dst, staged_k, staged_v in batches:  # scatter phase
-            kernel_ops.page_scatter(self.k_store, dst, staged_k)
-            kernel_ops.page_scatter(self.v_store, dst, staged_v)
+        order = ([c for c in pending if c.demote]
+                 + [c for c in pending if not c.demote])
+        stores = (self.k_store, self.v_store)
+        staged = kernel_ops.page_gather(stores, _host_frames([c.src for c in order]))
+        kernel_ops.page_scatter(stores, _host_frames([c.dst for c in order]), staged)
+        self.flushes += 1
+        self.flush_pairs[len(order)] += 1
 
     def _flush_if_touches(self, gframe: int) -> None:
         if self._pending and (

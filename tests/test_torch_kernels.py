@@ -140,25 +140,41 @@ def test_paged_attention_reads_a_strided_layer_view():
 
 
 # --------------------------------------------------------------------- #
+@pytest.mark.parametrize("stores", [1, 2])
 @pytest.mark.parametrize(
     "n,f,seed",
     [(1, 8, 0), (4, 16, 7), (8, 24, 42), (3, 12, 100), (2, 9, 55),
-     (6, 20, 13), (8, 8, 77), (5, 23, 31)],
+     (6, 20, 13), (8, 8, 77), (5, 23, 31),
+     # longer than one launch carries by value (the kernel's chunks)
+     (page_migrate.MAX_PAIRS + 44, page_migrate.MAX_PAIRS + 60, 9)],
 )
-def test_page_migrate_round_trip(n, f, seed):
-    """gather∘scatter round-trips arbitrary frames, exactly as Pallas does."""
+def test_page_migrate_round_trip(n, f, seed, stores):
+    """gather∘scatter round-trips arbitrary frames of one store or of a
+    (K, V) pair of stores, exactly as Pallas does on each store; frames
+    are a host int32 tensor, as the kernels take them."""
     rng = np.random.default_rng(seed)
-    src = rng.standard_normal((f, 2, 4, 8)).astype(np.float32)
+    src = rng.standard_normal((stores, f, 2, 4, 8)).astype(np.float32)
     idx = rng.choice(f, size=n, replace=False).astype(np.int32)
-    g_jax = jax_gather(jnp.asarray(src), jnp.asarray(idx), interpret=True)
-    g = ops.page_gather(torch.from_numpy(src), torch.from_numpy(idx))
-    np.testing.assert_array_equal(g.numpy(), np.asarray(g_jax))
+    frames = torch.from_numpy(idx)
+    assert frames.device.type == "cpu" and frames.dtype == torch.int32
+    g_jax = [jax_gather(jnp.asarray(s), jnp.asarray(idx), interpret=True) for s in src]
     dst = np.zeros_like(src)
-    s_jax = jax_scatter(jnp.asarray(dst), jnp.asarray(idx), g_jax, interpret=True)
+    s_jax = [jax_scatter(jnp.asarray(d), jnp.asarray(idx), g, interpret=True)
+             for d, g in zip(dst, g_jax)]
     dst_t = torch.from_numpy(dst.copy())
-    s = ops.page_scatter(dst_t, torch.from_numpy(idx), g)
-    assert s.data_ptr() == dst_t.data_ptr(), "page_scatter writes in place"
-    np.testing.assert_array_equal(s.numpy(), np.asarray(s_jax))
+    if stores == 1:
+        g = ops.page_gather(torch.from_numpy(src[0]), frames)
+        s = ops.page_scatter(dst_t[0], frames, g)
+        assert s.data_ptr() == dst_t.data_ptr(), "page_scatter writes in place"
+        g = g[None]
+    else:
+        g = ops.page_gather(tuple(torch.from_numpy(src)), frames)
+        s = ops.page_scatter(tuple(dst_t), frames, g)
+        assert [t.data_ptr() for t in s] == [t.data_ptr() for t in dst_t], \
+            "page_scatter writes in place"
+    assert g.shape == (stores, n, 2, 4, 8)
+    np.testing.assert_array_equal(g.numpy(), np.stack([np.asarray(x) for x in g_jax]))
+    np.testing.assert_array_equal(dst_t.numpy(), np.stack([np.asarray(x) for x in s_jax]))
 
 
 def test_page_migrate_trash_frame_duplicates():
@@ -283,6 +299,30 @@ def test_copy_kernels_refuse_misaligned_frames(op, fault):
             "page_scatter": lambda: page_migrate.page_scatter(store, frames,
                                                               store[:2])}[op]
     with pytest.raises(ValueError, match="16-byte aligned"):
+        call()
+
+
+@pytest.mark.parametrize("op", ["page_gather", "page_scatter"])
+@pytest.mark.parametrize("fault", ["frames_on_a_device", "frames_int64", "frames_2d",
+                                   "frame_out_of_range", "stores_differ", "three_stores"])
+def test_copy_kernels_refuse_bad_frames_or_stores(op, fault):
+    """The kernels read frame indices on the host (a 1-D int32 CPU
+    tensor, each in ``[0, F)``) and copy one store or a matching pair."""
+    store = torch.zeros((4, 8))
+    frames = {"frames_on_a_device": torch.zeros(2, dtype=torch.int32, device="meta"),
+              "frames_int64": torch.zeros(2, dtype=torch.int64),
+              "frames_2d": torch.zeros((1, 2), dtype=torch.int32),
+              "frame_out_of_range": torch.tensor([1, 4], dtype=torch.int32)
+              }.get(fault, torch.zeros(2, dtype=torch.int32))
+    stores = {"stores_differ": (store, torch.zeros((4, 8), dtype=torch.float64)),
+              "three_stores": (store, store, store)}.get(fault, store)
+    match = {"frames_on_a_device": "CPU tensor", "frames_int64": "1-D int32",
+             "frames_2d": "1-D int32", "frame_out_of_range": r"outside \[0, 4\)",
+             "stores_differ": "stores differ", "three_stores": "1 to 2 stores"}[fault]
+    pages = torch.zeros((2, 8)) if isinstance(stores, torch.Tensor) else torch.zeros((2, 2, 8))
+    call = {"page_gather": lambda: page_migrate.page_gather(stores, frames),
+            "page_scatter": lambda: page_migrate.page_scatter(stores, frames, pages)}[op]
+    with pytest.raises(ValueError, match=match):
         call()
 
 
