@@ -9,7 +9,7 @@ into ``build/``) and runs these phases:
 
 1. **Device** — the card's name and power limit, torch and CUDA
    versions; TF32 off for matmul and cuDNN (float32 throughout).
-2. **Kernels** — each of the five kernels against its plain PyTorch
+2. **Kernels** — each of the eight kernels against its plain PyTorch
    version on the card: ``paged_attention`` at the decode shapes of
    tinyllama-1.1b (H=32, Hkv=4, D=64) and phi3.5-moe (H=32, Hkv=8,
    D=128), P=16, B=MP=8, over strided ``store[:, li]`` views, with the
@@ -24,7 +24,16 @@ into ``build/``) and runs these phases:
    targets with identical payloads, frames on the card refused;
    ``router_topk`` at the MoE serve
    shapes (T=8 decode, T=47 prefill, E=16, k=2), rows of exact ties and
-   T=4096, E=64, k=6; one full-width phi3.5-moe MoE layer on the card
+   T=4096, E=64, k=6; the fused MoE routing stage ``moe_route`` (router
+   product, top-k, capacity slots, aux in one launch) with phi3.5-moe's
+   router (d=4096, E=16, k=2) at decode (C=1, 3 pad lanes), prefill
+   (C=7), drop-free capacity, exact ties, T=100 and T=1500 (ragged token
+   tiles) and deepseek-v2-lite's router (T=4096, d=2048, E=64, k=6):
+   experts, slots, src and counts equal to the plain routing on the
+   kernel's own logits, logits within 2e-5 of ``torch.mm``, two runs on
+   the same scratch bit for bit, counters back at zero; ``moe_dispatch``
+   and ``moe_combine`` equal to their plain versions at each case; one
+   full-width phi3.5-moe MoE layer on the card
    against the CPU at its decode and prefill shapes, where experts
    overflow and drop assignments; no launch counted for empty inputs;
    ``flash_attention`` at the two prefill shapes (S=47, causal, through
@@ -33,7 +42,9 @@ into ``build/``) and runs these phases:
    16-byte alignment (the element-by-element loader); plus the
    small sweeps of ``tests/test_kernels.py``.  Times each kernel, its
    plain version and, where one exists, the one PyTorch call that
-   computes the same function (the copies in phase 4).
+   computes the same function (the copies in phase 4; ``torch.mm`` of
+   the router product for the route, beside the unfused chain it
+   replaces).
 3. **Serve** — full-width tinyllama-1.1b, then full-width phi3.5-moe
    cut to 8 of its 32 layers (42.7 GB of float32 weights), each with
    seeded random weights through ``ServingEngine`` on ``cuda``: 8
@@ -41,10 +52,13 @@ into ``build/``) and runs these phases:
    promotions.  Launch counts are set to 0 before each run and read
    after it; each kernel of the path must have launched exactly as
    often as the path calls it (the copies once a flush and once for the
-   cache's prewarm), and placement must equal ``PLACEMENT``.  The
+   cache's prewarm; route, dispatch and combine once an MoE layer a
+   forward, the unfused ``router_topk`` never), and placement must
+   equal ``PLACEMENT``.  The
    cache's histogram of pairs per flush is kept.  Then 8 decode steps
-   of a fresh batch are traced with ``torch.profiler`` (device busy time, idle share and
-   top device ops per step; trace in ``build/profile/<arch>/``).  Last,
+   of a fresh batch are traced with ``torch.profiler`` (device busy time,
+   idle share, kernel launches and the MoE routing stage's time per
+   step, top device ops; trace in ``build/profile/<arch>/``).  Last,
    each smoke-size config runs one scripted lifecycle on ``cuda`` and
    on ``cpu``; tokens, stats, VmStat, tiers and page types must be
    equal.
@@ -554,6 +568,14 @@ def check_empty_inputs(torch, fails):
                         torch.empty((1, 2, 0, 64), device=dev),
                         torch.empty((1, 2, 0, 64), device=dev), impl="kernel")
     ops.router_topk(torch.empty((0, 16), device=dev), 2, impl="kernel")
+    ops.moe_route(torch.empty((0, 64), device=dev), torch.empty((64, 16), device=dev), 2, 1,
+                  impl="kernel")
+    ops.moe_dispatch(torch.empty((4, 0), device=dev),
+                     torch.full((16,), -1, dtype=torch.int32, device=dev), 16, 1,
+                     impl="kernel")
+    ops.moe_combine(torch.empty((16, 1, 64), device=dev),
+                    torch.empty((0,), dtype=torch.int32, device=dev),
+                    torch.empty((0, 2), device=dev), impl="kernel")
     ops.paged_attention(torch.empty((0, 4, 64), device=dev),
                         torch.empty((3, 2, 16, 64), device=dev),
                         torch.empty((3, 2, 16, 64), device=dev),
@@ -630,6 +652,214 @@ def check_router_topk(torch, gen, flush, fails):
         "kernel_bench_T4096_E64_k6": timed(4096, 64, 6),
         "checks": len(errs),
     }
+
+
+def tie_experts(E):
+    """The three experts that tie for the top in the route's tie case."""
+    return [1, E // 2, E - 1]
+
+
+def route_cases(torch, gen, d, E, k, factor):
+    """``(name, x, w, k, C)`` of the fused route's checks: the router of
+    ``(d, E, k)`` at its serve shapes (decode with 3 identical pad lanes,
+    prefill), drop-free, exact ties, token counts that leave a ragged
+    tile, and deepseek-v2-lite's router; C by the engine's formula."""
+    def rand(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    def cap(T, kk, EE, f=factor):
+        return max(1, int(f * T * kk / EE))
+
+    w = rand(d, E, std=0.02)  # nn.dense_init(std=0.02), as init_moe
+    decode = rand(8, d)
+    decode[5:] = decode[5]
+    # zero rows tie every expert; a row whose one nonzero entry is x[t, 0]
+    # > 0 has logits x[t, 0] * w[0], exact, and three equal entries of
+    # w[0] tie for the top
+    ties = torch.zeros((8, d), device="cuda")
+    ties[3:, 0] = rand(5).abs() + 0.1
+    w_ties = w.clone()
+    w_ties[0, tie_experts(E)] = 1.0
+    prefill = rand(47, d)
+    cases = [
+        (f"decode T=8 d={d} E={E} k={k} (3 pad lanes)", decode, w, k, cap(8, k, E)),
+        (f"prefill T=47", prefill, w, k, cap(47, k, E)),
+        ("prefill T=47 drop-free (capacity factor 8.0)", prefill, w, k, cap(47, k, E, 8.0)),
+        ("exact ties T=8 k=3", ties, w_ties, 3, cap(8, 3, E)),
+        ("T=100 (a ragged last tile of 8-row tiles)", rand(100, d), w, k, cap(100, k, E)),
+        ("T=1500 (a ragged last tile of 64-row tiles)", rand(1500, d), w, k, cap(1500, k, E)),
+        # deepseek-v2-lite's router (repro/configs/deepseek_v2_lite_16b.py:52)
+        ("deepseek-v2-lite T=4096 d=2048 E=64 k=6", rand(4096, 2048), rand(2048, 64, std=0.02),
+         6, cap(4096, 6, 64)),
+    ]
+    return cases
+
+
+def check_moe_route(torch, gen, cfg, flush, fails):
+    """The fused route, dispatch and combine on the card against their
+    plain versions.  ``idx``, ``slot``, ``src`` and ``counts`` exactly
+    equal to the plain routing run on the kernel's own logits (a near-tie
+    after another product order must not decide the check), ``probs``,
+    ``vals`` and ``aux`` within 1e-6 of it, ``logits`` within
+    ``TOL["float32"]`` of ``torch.mm``, two runs on the same scratch bit
+    for bit, the counters back at zero; dispatch and combine exactly
+    equal to their plain versions.  Returns the three kernels' rows."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import router_topk as rt
+
+    mcfg = cfg.all_specs()[0].moe
+    d, E, K = cfg.d_model, mcfg.n_experts, mcfg.top_k
+    cases = route_cases(torch, gen, d, E, K, mcfg.capacity_factor)
+    tol = 1e-6
+    errs, lerrs, out = [], [], {}
+    for name, x, w, k, C in cases:
+        got = ops.moe_route(x, w, k, C, impl="kernel")
+        again = ops.moe_route(x, w, k, C, impl="kernel")
+        torch.cuda.synchronize()
+        want = rt.route_logits_plain(got.logits, k, C)
+        mm = torch.mm(x, w)
+        torch.cuda.synchronize()
+        lerr = (got.logits - mm).abs().max().item()
+        err = max((got.probs - want.probs).abs().max().item(),
+                  (got.vals - want.vals).abs().max().item())
+        aux_err = abs(float(got.aux) - float(want.aux))
+        exact = {f: torch.equal(getattr(got, f), getattr(want, f).to(torch.int32))
+                 for f in ("idx", "slot", "src", "counts")}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        dropped = int((got.counts - C).clamp_min(0).sum())
+        ok = (all(exact.values()) and same and err <= tol and aux_err <= tol
+              and bool(torch.isfinite(got.logits).all()) and torch.allclose(
+                  got.logits, mm, atol=TOL["float32"], rtol=TOL["float32"]))
+        if name.startswith("exact ties"):
+            ok &= got.idx.tolist() == [[0, 1, 2]] * 3 + [tie_experts(w.shape[1])] * 5
+        errs.append(err)
+        lerrs.append(lerr)
+        # dispatch and combine at this case's routing
+        Ek = w.shape[1]
+        xe = ops.moe_dispatch(x, got.src, Ek, C, impl="kernel")
+        ye = torch.randn((Ek, C, x.shape[1]), generator=gen, device="cuda")
+        y = ops.moe_combine(ye, got.slot, got.vals, impl="kernel")
+        torch.cuda.synchronize()
+        glue = {"dispatch": torch.equal(xe, ops.moe_dispatch(x, got.src, Ek, C, impl="ref")),
+                "combine": torch.equal(y, ops.moe_combine(ye, got.slot, got.vals,
+                                                          impl="ref"))}
+        out[name] = dict(capacity=C, dropped=dropped, logits_max_abs_err=lerr,
+                         max_abs_err=err, aux_abs_err=aux_err, equal=exact,
+                         rerun_bit_identical=same, **glue)
+        if not ok:
+            fails.append(f"moe_route {name}: {out[name]}")
+        if not all(glue.values()):
+            fails.append(f"moe_dispatch/moe_combine {name}: {glue}")
+        del xe, ye, y
+    try:  # refused before it runs: the counters stay as they are
+        ops.moe_route(cases[0][1], cases[0][2], 9, 1, impl="kernel")
+        fails.append("moe_route took k=9")
+    except ValueError:
+        pass
+    torch.cuda.synchronize()
+    left = sum(int(b.abs().sum()) for b in build._counters.values())
+    if left:
+        fails.append(f"moe_route left its counters at {left}, not 0")
+    log(f"[kernels] moe_route checks {json.dumps(out)}")
+
+    by = {n: (x, w, k, C) for n, x, w, k, C in cases}
+    timed_cases = {"decode": cases[0][0], "prefill": cases[1][0],
+                   "deepseek_v2_lite": cases[-1][0]}
+
+    def route_times(x, w, k, C):
+        T, dd = x.shape
+        Ek = w.shape[1]
+        nbytes = 4 * (T * dd + dd * Ek + 2 * T * Ek + 3 * T * k + Ek * C + Ek + 1)
+        b_ms, b_by = bound(nbytes, 2.0 * T * dd * Ek)
+        return dict(
+            kernel_ms=time_ms(torch, lambda: rt.moe_route(x, w, k, C), flush),
+            plain_ms=time_ms(torch, lambda: rt.moe_route_plain(x, w, k, C), flush),
+            # the unfused chain: the product, the router_topk kernel, and the
+            # torch lines of the slots, src and aux
+            unfused_chain_ms=time_ms(torch, lambda: rt.route_logits_plain(
+                torch.mm(x, w), k, C, topk=rt.router_topk), flush),
+            library_ms=time_ms(torch, lambda: torch.mm(x, w), flush),
+            library_call="torch.mm (the router product alone)",
+            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=2.0 * T * dd * Ek)
+
+    def glue_times(x, w, k, C):
+        T, dd = x.shape
+        Ek = w.shape[1]
+        r = rt.moe_route(x, w, k, C)
+        ye = torch.randn((Ek, C, dd), generator=gen, device="cuda")
+        src, slot, vals = r.src, r.slot, r.vals
+        slot_l = slot.long()
+        kept = int((src >= 0).sum())
+        rows = int(torch.unique(src[src >= 0]).numel())
+
+        def dispatch_lines():  # the torch lines moe_dispatch replaces
+            xe = torch.zeros((Ek * C + 1, dd), device="cuda")
+            xe.index_add_(0, slot_l, x.repeat_interleave(k, dim=0))
+            return xe[:Ek * C].reshape(Ek, C, dd)
+
+        def combine_lines():  # the torch lines moe_combine replaces
+            ye_flat = torch.cat([ye.reshape(Ek * C, dd), ye.new_zeros((1, dd))], dim=0)
+            yk = ye_flat[slot_l].reshape(T, k, dd)
+            return torch.sum(yk * vals[..., None], dim=1)
+
+        d_bytes = 4 * (rows * dd + Ek * C + Ek * C * dd)
+        c_bytes = 4 * (kept * dd + 2 * T * k + T * dd)
+        db_ms, db_by = bound(d_bytes, 0.0)
+        cb_ms, cb_by = bound(c_bytes, 2.0 * T * k * dd)
+        return {
+            "moe_dispatch": dict(
+                kernel_ms=time_ms(torch, lambda: md.moe_dispatch(x, src, Ek, C), flush),
+                plain_ms=time_ms(torch, lambda: md.moe_dispatch_plain(x, src, Ek, C), flush),
+                replaced_lines_ms=time_ms(torch, dispatch_lines, flush),
+                library_ms=None, bound_ms=db_ms, bound_by=db_by, bound_bytes=d_bytes),
+            "moe_combine": dict(
+                kernel_ms=time_ms(torch, lambda: md.moe_combine(ye, slot, vals), flush),
+                plain_ms=time_ms(torch, lambda: md.moe_combine_plain(ye, slot, vals), flush),
+                replaced_lines_ms=time_ms(torch, combine_lines, flush),
+                library_ms=None, bound_ms=cb_ms, bound_by=cb_by, bound_bytes=c_bytes,
+                bound_flops=2.0 * T * k * dd),
+        }
+
+    route_t = {key: route_times(*by[n]) for key, n in timed_cases.items()}
+    # the decode route with L2 warm (no flush): the launch's serial tail
+    # runs in one block, and a cold L2 holds neither its data nor its code
+    x, w, k, C = by[timed_cases["decode"]]
+    route_t["decode"]["warm_l2_ms"] = time_ms(
+        torch, lambda: rt.moe_route(x, w, k, C), torch.ones(1, device="cuda"))
+    glue_t = {key: glue_times(*by[n]) for key, n in timed_cases.items()}
+    rows = [{
+        "name": "moe_route", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/router_topk.cu",
+        "replaces": "src/repro/kernels/router_topk.py:60",
+        "replaces_also": "src/repro/models/moe.py:90-119 (XLA: router product, "
+                         "aux, capacity slots)",
+        "shape": f"x (8, {d}) f32 @ w ({d}, {E}), k={K}, C=1, 3 pad lanes "
+                 "(phi3.5-moe decode at batch 8)",
+        "max_abs_err": max(errs), "tolerance": tol,
+        "logits_max_abs_err": max(lerrs), "logits_tolerance": TOL["float32"],
+        "indices_slots_src_counts": "equal",
+        **route_t["decode"],
+        "prefill_T47": route_t["prefill"],
+        "deepseek_v2_lite_T4096_d2048_E64_k6": route_t["deepseek_v2_lite"],
+        "checks": len(cases),
+    }]
+    for kname in ("moe_dispatch", "moe_combine"):
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+            "replaces": "src/repro/models/moe.py:121",
+            "replaces_note": "no TPU kernel: XLA at src/repro/models/moe.py:121-137",
+            "shape": f"phi3.5-moe decode: T=8, d={d}, E={E}, k={K}, C=1",
+            "max_abs_err": 0.0, "tolerance": 0.0, "exact_checks": len(cases),
+            **glue_t["decode"][kname],
+            "prefill_T47": glue_t["prefill"][kname],
+            "deepseek_v2_lite_T4096_d2048_E64_k6": glue_t["deepseek_v2_lite"][kname],
+        })
+    del cases, by
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 def flash_work(torch, q, k, causal, window):
@@ -810,7 +1040,8 @@ def main() -> None:
                    + check_page_migrate(torch, gen, F, moe_frame, fails, sweeps=False))
     log(f"[kernels] page_gather/page_scatter: {copy_checks} exact checks")
     rows.append(check_router_topk(torch, gen, flush, fails))
-    rows[-1]["moe_fwd_cuda_vs_cpu"] = check_moe_fwd(torch, moe_cfg, fails)
+    rows += check_moe_route(torch, gen, moe_cfg, flush, fails)
+    rows[-3]["moe_fwd_cuda_vs_cpu"] = check_moe_fwd(torch, moe_cfg, fails)
     check_empty_inputs(torch, fails)
     rows.append(check_flash_attention(torch, gen, flush, fails))
     del flush
@@ -914,8 +1145,12 @@ def serve_phase(torch, name, cfg, ecfg):
     log(f"[serve] summary {json.dumps(summary)}")
     L, steps = cfg.n_layers, res["steps"]
     moe = any(s.moe is not None for s in cfg.all_specs())
+    # an MoE layer routes once a forward: one launch each of the route,
+    # the dispatch and the combine; the unfused router_topk is off the path
+    routed = L * (steps + requests) if moe else 0
     expected = {"paged_attention": L * steps, "flash_attention": L * requests,
-                "router_topk": L * (steps + requests) if moe else 0}
+                "router_topk": 0, "moe_route": routed, "moe_dispatch": routed,
+                "moe_combine": routed}
     for kname, n in expected.items():
         if launches[kname] != n:
             fail(f"{name}: {kname} launched {launches[kname]} times, expected {n}")

@@ -142,6 +142,23 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# per (device, stream): int32 counters that a kernel's last blocks reset
+# to 0, shared by every such kernel (launches on one stream run in order)
+_counters: Dict[Tuple[int, int], "torch.Tensor"] = {}
+
+
+def counters(device, stream: int, n: int):
+    """At least ``n`` int32 counters, all 0, for kernels on ``stream``."""
+    import torch
+
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
     if code != 0:

@@ -16,6 +16,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_dispatch as _md
 from repro_torch.kernels import page_migrate as _pm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import router_topk as _rt
@@ -27,6 +28,9 @@ KERNELS = {
     "page_scatter": _pm.page_scatter,
     "router_topk": _rt.router_topk,
     "flash_attention": _fa.flash_attention,
+    "moe_route": _rt.moe_route,
+    "moe_dispatch": _md.moe_dispatch,
+    "moe_combine": _md.moe_combine,
 }
 
 
@@ -77,6 +81,25 @@ def router_topk(logits, k, impl="auto"):
     """→ ``(probs, vals, idx)``."""
     fn = _rt.router_topk if _pick(impl, logits) == "kernel" else _rt.router_topk_plain
     return fn(logits, k)
+
+
+def moe_route(x, w, k, capacity, impl="auto"):
+    """The MoE routing stage of ``x (T, d)`` through the router weight
+    ``w (d, E)`` at ``capacity`` slots an expert → ``router_topk.Route``."""
+    fn = _rt.moe_route if _pick(impl, x) == "kernel" else _rt.moe_route_plain
+    return fn(x, w, k, capacity)
+
+
+def moe_dispatch(x, src, n_experts, capacity, impl="auto"):
+    """→ ``xe (E, C, d)``: slot s holds row ``src[s]`` of ``x``, or zeros."""
+    fn = _md.moe_dispatch if _pick(impl, x) == "kernel" else _md.moe_dispatch_plain
+    return fn(x, src, n_experts, capacity)
+
+
+def moe_combine(ye, slot, vals, impl="auto"):
+    """→ ``y (T, d)``, each token's expert rows weighted by its gates."""
+    fn = _md.moe_combine if _pick(impl, ye) == "kernel" else _md.moe_combine_plain
+    return fn(ye, slot, vals)
 
 
 def launch_counts() -> Dict[str, int]:

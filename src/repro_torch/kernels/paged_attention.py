@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -76,19 +76,6 @@ def split_plan(B: int, Hkv: int, G: int, MP: int, sms: int) -> Tuple[int, int, i
     want = min(MP, -(-2 * sms // blocks))
     pps = -(-MP // want)
     return GC, NW, -(-MP // pps), pps
-
-
-# per (device, stream): int32 counters the kernel's last blocks reset to 0
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    key = (device.index, stream)
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                           device=device)
-    return buf
 
 
 def _check_mode(lengths, page_pos, q_pos, window) -> bool:
@@ -173,7 +160,7 @@ def paged_attention(
         if NS > 1:
             part = torch.empty(B * Hkv * GC * NS * NW * (D + 2),
                                dtype=torch.float32, device=q.device)
-            counters = _counter_buffer(q.device, stream, B * Hkv * GC)
+            counters = build.counters(q.device, stream, B * Hkv * GC)
         code = lib.paged_attention(
             _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             bt.data_ptr(),

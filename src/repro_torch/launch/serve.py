@@ -145,6 +145,14 @@ def _copy_launches() -> int:
     return counts["page_gather"] + counts["page_scatter"]
 
 
+def trace_kernel_launches(path) -> int:
+    """Device kernel launches in a Chrome trace written by
+    ``torch.profiler`` (events of category ``kernel``; copies and fills
+    are other categories)."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel")
+
+
 def profile_decode(eng: ServingEngine, vocab: int, requests: int,
                    prompt_len: int, steps: int, out_dir: str,
                    seed: int = 1) -> Dict[str, Any]:
@@ -153,10 +161,11 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
     Finishes whatever the engine still holds, admits ``requests`` new
     prompts, runs two untraced warm-up steps, then traces ``steps``
     steps.  Writes the per-op table (``ops.txt``) and a Chrome trace
-    (``trace.json``) to ``out_dir`` and returns the wall time and the
-    device busy time per step (the sum of kernel times: one stream, so
-    kernels do not overlap).  Tracing slows the host; take end-to-end
-    times from an untraced run.
+    (``trace.json``) to ``out_dir`` and returns, per step, the wall time,
+    the device busy time (the sum of kernel times: one stream, so
+    kernels do not overlap), the device kernel launches, and the device
+    time of the MoE routing stage (route, dispatch and combine).
+    Tracing slows the host; take end-to-end times from an untraced run.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -194,6 +203,9 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
     own = {}
     for name, fn in (("paged_attention", "paged_attention_kernel"),
                      ("router_topk", "router_topk_kernel"),
+                     ("moe_route", "moe_route_kernel"),
+                     ("moe_dispatch", "moe_dispatch_kernel"),
+                     ("moe_combine", "moe_combine_kernel"),
                      ("flash_attention", "flash_attention_kernel"),
                      ("page_gather+page_scatter", "page_copy_kernel")):
         evs = [e for e in ka if e.device_type.name == "CUDA" and fn in e.key]
@@ -205,9 +217,14 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
                 # by the wrappers' count: the trace can miss a launch
                 own[name].update(flushes=flushes, launches_counted=copies,
                                  us_per_flush=us / n * copies / flushes)
+    routing = [own[n]["launches_per_step"] * own[n]["us_per_launch"]
+               for n in ("moe_route", "moe_dispatch", "moe_combine") if n in own]
     return {
         "traced_steps": steps,
         "wall_ms_per_step": 1e3 * wall / steps,
+        "device_launches_per_step": trace_kernel_launches(out / "trace.json") / steps,
+        # the MoE layers' route, dispatch and combine kernels, in place
+        "moe_routing_us_per_step": sum(routing) if routing else None,
         "device_busy_ms_per_step": device_us / 1e3 / steps,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "top_device_ops_ms_per_step": {

@@ -25,6 +25,7 @@ from repro.kernels.paged_attention import paged_attention as jax_paged  # noqa: 
 from repro.kernels.ref import paged_attention_ref  # noqa: E402
 from repro.kernels.router_topk import router_topk as jax_router  # noqa: E402
 from repro_torch.kernels import ops, page_migrate  # noqa: E402
+from repro_torch.kernels import router_topk as rt  # noqa: E402
 from repro_torch.models.attention import reference_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import PAD_PAGE_POS, split_plan  # noqa: E402
 
@@ -269,7 +270,8 @@ def test_router_topk_ties_go_to_the_lower_index():
 
 
 @pytest.mark.parametrize("op", ["paged_attention", "page_gather", "page_scatter",
-                                "router_topk", "flash_attention"])
+                                "router_topk", "flash_attention", "moe_route",
+                                "moe_dispatch", "moe_combine"])
 def test_kernel_impl_on_cpu_raises(op):
     """``impl="kernel"`` on a CPU tensor raises; it never falls back."""
     x = torch.zeros((4, 2, 8, 16))
@@ -282,6 +284,14 @@ def test_kernel_impl_on_cpu_raises(op):
         "page_scatter": lambda: ops.page_scatter(x, frames, x[:2], impl="kernel"),
         "router_topk": lambda: ops.router_topk(torch.zeros((3, 16)), 2, impl="kernel"),
         "flash_attention": lambda: ops.flash_attention(x, x, x, impl="kernel"),
+        "moe_route": lambda: ops.moe_route(torch.zeros((3, 8)), torch.zeros((8, 16)), 2, 1,
+                                           impl="kernel"),
+        "moe_dispatch": lambda: ops.moe_dispatch(
+            torch.zeros((3, 8)), torch.full((16,), -1, dtype=torch.int32), 16, 1,
+            impl="kernel"),
+        "moe_combine": lambda: ops.moe_combine(
+            torch.zeros((16, 1, 8)), torch.zeros(6, dtype=torch.int32),
+            torch.zeros((3, 2)), impl="kernel"),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[op]()
@@ -436,3 +446,95 @@ def test_paged_attention_split_plan_covers_every_page_once(B, Hkv, G, MP):
         assert 1 < NS <= MP
     if (B, Hkv, MP) == (8, 4, 8):
         assert (NS, pps) == (8, 1)
+
+
+# --------------------------------------------------------------------- #
+# The fused route's grid (route_plan) and its split of the capacity
+# dispatch over token tiles: each tile's last block ranks the tile's
+# assignments per expert (8 warps, each a run of 32-assignment chunks,
+# and a scan over warps), and the grid's last block adds each tile's
+# base, the scan of the tiles' counts.  Held here against the plain
+# version's stable-argsort slots.
+# --------------------------------------------------------------------- #
+ROUTE_SHAPES = [(8, 4096, 16, 2), (47, 4096, 16, 2), (4096, 2048, 64, 6), (5, 64, 4, 2),
+                (1, 32, 1, 1), (300, 100, 256, 8), (1023, 33, 8, 2), (2000, 130, 6, 3)]
+
+
+@pytest.mark.parametrize("T,d,E,k", ROUTE_SHAPES)
+def test_route_plan_covers_tokens_and_width(T, d, E, k):
+    p = rt.route_plan(T, d, E, 132)
+    NE, NM, KS, TM, NT, NC, DC, BK = (p[n] for n in ("NE", "NM", "KS", "TM", "NT", "NC",
+                                                      "DC", "BK"))
+    assert NE * NM * KS == rt.THREADS and NM <= 16 and TM == 4 * NM
+    assert NE & (NE - 1) == 0 and NM & (NM - 1) == 0
+    assert E <= 4 * NE <= rt.MAX_EXPERTS
+    assert NT == -(-T // TM)
+    # a k-tile fits the staging registers: 2 and 8 float4 of x and w a thread
+    assert BK % rt.BK_MIN == 0 and TM * BK <= 2048 and BK * 4 * NE <= 8192
+    assert DC % BK == 0 and (NC - 1) * DC < d <= NC * DC  # no empty chunk
+    assert NC <= rt.MAX_CHUNKS and (NT * NC <= 132 or NC == 1)
+
+
+def tile_ranked_slots(idx, TM, E, C, warps=8):
+    """The kernel's phases 2 and 3 over ``idx (T, k)`` in numpy."""
+    T, k = idx.shape
+    NT = -(-T // TM)
+    rank = np.empty(T * k, np.int64)
+    tcnt = np.zeros((NT, E), np.int64)
+    for tile in range(NT):
+        ids = idx[tile * TM:(tile + 1) * TM].reshape(-1)
+        n = ids.size
+        seg = -(-n // (warps * 32)) * 32
+        wc = np.zeros((warps, E), np.int64)
+        for w in range(warps):  # counts of each warp's run
+            lo, hi = min(n, w * seg), min(n, w * seg + seg)
+            wc[w] = np.bincount(ids[lo:hi], minlength=E)
+        tcnt[tile] = wc.sum(axis=0)
+        wc = np.cumsum(wc, axis=0) - wc  # exclusive scan over warps
+        for w in range(warps):
+            lo, hi = min(n, w * seg), min(n, w * seg + seg)
+            for base in range(lo, hi, 32):  # a chunk: rank among lower peers
+                e = ids[base:min(hi, base + 32)]
+                lower = (e[None, :] == e[:, None]) & np.tri(e.size, k=-1, dtype=bool)
+                rank[tile * TM * k + base + np.arange(e.size)] = wc[w, e] + lower.sum(axis=1)
+                wc[w] += np.bincount(e, minlength=E)
+    base = np.cumsum(tcnt, axis=0) - tcnt  # exclusive scan over tiles
+    e = idx.reshape(-1)
+    pos = rank + base[np.arange(T * k) // k // TM, e]
+    slot = np.where(pos < C, e * C + pos, E * C)
+    src = np.full(E * C, -1, np.int64)
+    keep = pos < C
+    src[slot[keep]] = (np.arange(T * k) // k)[keep]
+    return slot, src, tcnt.sum(axis=0)
+
+
+@pytest.mark.parametrize("T,d,E,k", ROUTE_SHAPES)
+@pytest.mark.parametrize("factor", [1.25, 8.0])
+def test_route_tiles_give_the_plain_slots(T, d, E, k, factor):
+    rng = np.random.default_rng(T + E)
+    logits = rng.standard_normal((T, E)).astype(np.float32)
+    logits[T // 2:] = logits[T // 2]  # identical rows pile onto the same experts
+    C = max(1, int(factor * T * k / E))
+    r = rt.route_logits_plain(torch.from_numpy(logits), k, C)
+    slot, src, counts = tile_ranked_slots(r.idx.numpy(), rt.route_plan(T, d, E, 132)["TM"],
+                                          E, C)
+    np.testing.assert_array_equal(r.slot.numpy(), slot)
+    np.testing.assert_array_equal(r.src.numpy(), src)
+    np.testing.assert_array_equal(r.counts.numpy(), counts)
+
+
+@pytest.mark.parametrize("fault", ["widths", "k", "capacity", "assignments"])
+def test_moe_route_refuses_what_the_kernel_does_not_take(fault):
+    """Checked before the device: the plain version refuses the same."""
+    x, w, k, C = torch.zeros((4, 8)), torch.zeros((8, 16)), 2, 1
+    if fault == "widths":
+        w = torch.zeros((7, 16))
+    elif fault == "k":
+        k = 9
+    elif fault == "capacity":
+        C = 0
+    else:
+        C = rt.MAX_ASSIGNMENTS
+    for fn in (rt.moe_route, rt.moe_route_plain):
+        with pytest.raises(ValueError, match="moe_route"):
+            fn(x, w, k, C)

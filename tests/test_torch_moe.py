@@ -83,3 +83,154 @@ def test_published_widths_match_jax_tree(arch):
         assert str(t.dtype).replace("torch.", "") == str(j.dtype)
     assert param_bytes(get_config(arch)) == sum(j.size * j.dtype.itemsize
                                                 for _, j in jleaves)
+
+
+@pytest.mark.parametrize("capacity", [1, 3])
+@pytest.mark.parametrize("experts", [
+    pytest.param(dict(n_experts=16, top_k=2, d_ff_expert=96), id="16e-top2"),
+    pytest.param(dict(n_experts=8, top_k=3, d_ff_expert=64, n_shared=2,
+                      d_ff_shared=128), id="8e-top3-shared"),
+])
+def test_moe_fwd_capacity_override_matches_jax(experts, capacity):
+    """An explicit ``capacity`` replaces the factor's in both packages."""
+    d = 64
+    jcfg, jp, tcfg, tp = moe_pair(4, d, dict(experts))
+    x = np.random.default_rng(12).standard_normal((1, 47, d)).astype(np.float32)
+    y_j, aux_j = jmoe.moe_fwd(jp, jcfg, jnp.asarray(x), capacity=capacity)
+    y_t, aux_t = tmoe.moe_fwd(tp, tcfg, torch.from_numpy(x), capacity=capacity)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(float(aux_t), float(aux_j), atol=1e-6)
+
+
+# --------------------------------------------------------------------- #
+# the routing stage alone: moe_route_plain, moe_dispatch_plain and
+# moe_combine_plain, which a CPU tensor runs and the kernels are held to
+# on the card
+# --------------------------------------------------------------------- #
+def route_case(name):
+    """``(x (T, d), w (d, E), k, C)`` from numpy; C by the engine's formula
+    at the case's capacity factor."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    T, d, E, k, factor = {"decode": (8, 64, 16, 2, 1.25), "prefill": (47, 64, 16, 2, 1.25),
+                          "drop_free": (47, 64, 16, 2, 8.0), "ties": (8, 32, 16, 3, 1.25),
+                          "64e_top6": (100, 48, 64, 6, 1.25)}[name]
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((d, E))).astype(np.float32)
+    if name == "decode":
+        x[5:] = x[5]  # pad lanes
+    if name == "ties":
+        # zero rows tie every expert; a row whose one nonzero entry is
+        # x[t, 0] > 0 has logits x[t, 0] * w[0], exact, and w[0]'s three
+        # equal largest entries tie for the top
+        x[:] = 0.0
+        x[3:, 0] = np.abs(rng.standard_normal(T - 3)) + 0.1
+        w[0] = 0.1 * rng.random(E)
+        w[0, [3, 9, 12]] = 1.0
+    return x, w, k, max(1, int(factor * T * k / E))
+
+
+def fcfs(idx, E, C):
+    """First come, first served over the flat assignments, one at a time."""
+    T, k = idx.shape
+    count = np.zeros(E, np.int64)
+    slot = np.empty(T * k, np.int64)
+    src = np.full(E * C, -1, np.int64)
+    for a, e in enumerate(idx.reshape(-1)):
+        pos = count[e]
+        count[e] += 1
+        slot[a] = e * C + pos if pos < C else E * C
+        if pos < C:
+            src[e * C + pos] = a // k
+    return slot, src, count
+
+
+def jax_route(x, w, K, C):
+    """``repro/models/moe.py:90-119`` on ``xt = x``: probs, gates, experts,
+    aux and slots."""
+    T, E = x.shape[0], w.shape[1]
+    logits = jnp.asarray(x) @ jnp.asarray(w)
+    probs = jax.nn.softmax(logits, axis=-1)
+    gate_vals, gate_idx = jax.lax.top_k(probs, K)
+    gate_vals = gate_vals / jnp.maximum(gate_vals.sum(-1, keepdims=True), 1e-9)
+    me = probs.mean(axis=0)
+    ce = jnp.zeros((E,), jnp.float32).at[gate_idx.reshape(-1)].add(1.0) / (T * K)
+    aux = E * jnp.sum(me * ce)
+    flat_e = gate_idx.reshape(-1)
+    order = jnp.argsort(flat_e, stable=True)
+    counts = jnp.zeros((E,), jnp.int32).at[flat_e].add(1)
+    starts = jnp.concatenate([jnp.zeros((1,), jnp.int32), jnp.cumsum(counts)[:-1]])
+    pos_sorted = jnp.arange(T * K, dtype=jnp.int32) - starts[flat_e[order]]
+    pos = jnp.zeros((T * K,), jnp.int32).at[order].set(pos_sorted).reshape(T, K)
+    slot = jnp.where(pos < C, gate_idx * C + pos, E * C)
+    return probs, gate_vals, gate_idx, aux, slot.reshape(-1)
+
+
+ROUTE_CASES = ["decode", "prefill", "drop_free", "ties", "64e_top6"]
+
+
+@pytest.mark.parametrize("name", ROUTE_CASES)
+def test_moe_route_plain_slots_are_first_come_first_served(name):
+    x, w, k, C = route_case(name)
+    r = ops.moe_route(torch.from_numpy(x), torch.from_numpy(w), k, C)
+    slot, src, count = fcfs(r.idx.numpy(), w.shape[1], C)
+    np.testing.assert_array_equal(r.slot.numpy(), slot)
+    np.testing.assert_array_equal(r.src.numpy(), src)
+    np.testing.assert_array_equal(r.counts.numpy(), count)
+    assert r.slot.dtype == r.src.dtype == r.counts.dtype == r.idx.dtype == torch.int32
+    dropped = int((count - C).clip(min=0).sum())
+    assert (dropped == 0) == (name == "drop_free")
+    if name == "ties":  # a zero row: the k lowest experts; a tied row: 3, 9, 12
+        assert r.idx.tolist() == [[0, 1, 2]] * 3 + [[3, 9, 12]] * 5
+
+
+@pytest.mark.parametrize("name", ROUTE_CASES)
+def test_moe_route_plain_matches_jax_router(name):
+    x, w, k, C = route_case(name)
+    r = ops.moe_route(torch.from_numpy(x), torch.from_numpy(w), k, C)
+    probs, vals, idx, aux, slot = jax_route(x, w, k, C)
+    np.testing.assert_allclose(r.logits.numpy(), x @ w, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(r.probs.numpy(), np.asarray(probs), atol=1e-6)
+    np.testing.assert_allclose(r.vals.numpy(), np.asarray(vals), atol=1e-6)
+    np.testing.assert_array_equal(r.idx.numpy(), np.asarray(idx))
+    np.testing.assert_array_equal(r.slot.numpy(), np.asarray(slot))
+    np.testing.assert_allclose(float(r.aux), float(aux), atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ROUTE_CASES)
+def test_moe_dispatch_and_combine_plain_match_jax(name):
+    """The slots' rows against ``xe.at[slot].add`` into zeros (exact), and
+    the gated gather against ``moe.py:133-135``."""
+    x, w, k, C = route_case(name)
+    T, d = x.shape
+    E = w.shape[1]
+    r = ops.moe_route(torch.from_numpy(x), torch.from_numpy(w), k, C)
+    slot = jnp.asarray(r.slot.numpy())
+    xe_j = jnp.zeros((E * C + 1, d), jnp.float32).at[slot].add(
+        jnp.repeat(jnp.asarray(x), k, axis=0))[: E * C].reshape(E, C, d)
+    xe = ops.moe_dispatch(torch.from_numpy(x), r.src, E, C)
+    np.testing.assert_array_equal(xe.numpy(), np.asarray(xe_j))
+    ye = np.random.default_rng(3).standard_normal((E, C, d)).astype(np.float32)
+    ye_flat = jnp.concatenate([jnp.asarray(ye).reshape(E * C, d),
+                               jnp.zeros((1, d), jnp.float32)], axis=0)
+    yk = ye_flat[slot].reshape(T, k, d)
+    y_j = jnp.sum(yk * jnp.asarray(r.vals.numpy())[..., None], axis=1)
+    y = ops.moe_combine(torch.from_numpy(ye), r.slot, r.vals)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=1e-6, rtol=1e-6)
+
+
+def test_plain_moe_path_launches_no_kernel():
+    """On the CPU the layer runs the plain versions: no launch is counted."""
+    d = 64
+    _, _, tcfg, tp = moe_pair(5, d, dict(n_experts=16, top_k=2, d_ff_expert=96))
+    ops.reset_launch_counts()
+    x = np.random.default_rng(13).standard_normal((2, 9, d)).astype(np.float32)
+    tmoe.moe_fwd(tp, tcfg, torch.from_numpy(x))
+    assert not any(ops.launch_counts().values())
+    assert {"moe_route", "moe_dispatch", "moe_combine"} <= set(ops.launch_counts())
+
+
+def test_moe_fwd_refuses_a_router_bias():
+    _, _, tcfg, tp = moe_pair(6, 32, dict(n_experts=4, top_k=2, d_ff_expert=32))
+    tp["router"]["b"] = torch.zeros(4)
+    with pytest.raises(ValueError, match="bias"):
+        tmoe.moe_fwd(tp, tcfg, torch.zeros((1, 3, 32)))

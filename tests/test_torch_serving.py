@@ -147,9 +147,12 @@ def test_detached_prefill_and_admission_cap(tiny):
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "phi3.5-moe-42b-a6.6b"])
 def test_serve_calls_flash_per_prefill_layer_and_router_per_moe_layer(arch, monkeypatch):
     """Prefill runs ``flash_attention`` once per layer and prompt; an MoE
-    model runs ``router_topk`` once per layer in every prefill and every
-    decode step (the counts ``chip_smoke.py`` holds the kernels to)."""
-    calls = {"flash_attention": 0, "router_topk": 0}
+    model runs the routing stage (``moe_route``, ``moe_dispatch`` and
+    ``moe_combine``, once each) per layer in every prefill and every
+    decode step, and the unfused ``router_topk`` never (the counts
+    ``chip_smoke.py`` holds the kernels to)."""
+    calls = {"flash_attention": 0, "router_topk": 0, "moe_route": 0, "moe_dispatch": 0,
+             "moe_combine": 0}
 
     def counted(name):
         fn = getattr(kernel_ops, name)
@@ -167,8 +170,9 @@ def test_serve_calls_flash_per_prefill_layer_and_router_per_moe_layer(arch, monk
                 max_new=5, device="cpu")
     L = cfg.n_layers
     assert calls["flash_attention"] == L * 3
-    assert calls["router_topk"] == (L * (3 + res["steps"]) if arch != "tinyllama-1.1b"
-                                    else 0)
+    moe = L * (3 + res["steps"]) if arch != "tinyllama-1.1b" else 0
+    assert calls == {"flash_attention": L * 3, "router_topk": 0, "moe_route": moe,
+                     "moe_dispatch": moe, "moe_combine": moe}
 
 
 def test_launcher_refuses_a_model_larger_than_the_card(monkeypatch):
