@@ -58,10 +58,22 @@ into ``build/``) and runs these phases:
    cache's histogram of pairs per flush is kept.  Then 8 decode steps
    of a fresh batch are traced with ``torch.profiler`` (device busy time,
    idle share, kernel launches and the MoE routing stage's time per
-   step, top device ops; trace in ``build/profile/<arch>/``).  Last,
-   each smoke-size config runs one scripted lifecycle on ``cuda`` and
-   on ``cpu``; tokens, stats, VmStat, tiers and page types must be
-   equal.
+   step, top device ops; trace in ``build/profile/<arch>/``).  Then the
+   paper's comparison at full width: tinyllama-1.1b at the same serve
+   config under ``linux``, ``numa_balancing`` and ``autotiering``, and
+   under ``ideal`` with no slow tier and a fast tier that holds every
+   page, each with exact launch counts and its policy's semantics
+   (``linux`` never migrates, ``numa_balancing`` never demotes,
+   ``autotiering`` demotes and promotes, ``ideal`` never reads the slow
+   tier).  Then the reference data plane at full width (2 requests,
+   prompt 48, 8 new tokens): no ``paged_attention`` and no copy launch,
+   and tokens equal to the batched plane's on the same inputs up to a
+   logged near-tie (top-2 logit gap below ``NEAR_TIE``).  Last, with
+   ``TIERSAN_LEVEL=full`` and ``TIERSAN_PLAN_CHECK=1``, scripted
+   smoke-size lifecycles run on ``cuda`` and on ``cpu``: both archs on
+   both planes, tinyllama under each baseline, and a two-tenant QoS
+   lifecycle that must shed a batch request; tokens, stats (with
+   ``stats()["qos"]``), VmStat, tiers and page types must be equal.
 4. **Copies** — ``page_gather`` and ``page_scatter`` timed at each serve
    run's median flush (pairs × both stores, at its frame) and at 64
    live frames of one store, beside their plain versions, the library
@@ -78,6 +90,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -94,6 +107,10 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:18
 # each serve run's placement: the same for both archs, and the port's
 # kernels must not change it
 PLACEMENT = {"local_fraction": 0.6205357142857143, "demoted": 208, "promoted": 205}
+BASELINES = ("linux", "numa_balancing", "autotiering", "ideal")
+# the reference plane's tokens may differ from the batched plane's only
+# where the reference logits' top two are closer than this
+NEAR_TIE = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -998,7 +1015,7 @@ def main() -> None:
     from repro_torch.core import TppConfig
     from repro_torch.kernels import build
     from repro_torch.launch.serve import strict_fp32
-    from repro_torch.models.model import param_bytes
+    from repro_torch.models.model import init_params, param_bytes
     from repro_torch.serving import EngineConfig
 
     t_start = time.perf_counter()
@@ -1058,9 +1075,29 @@ def main() -> None:
                 f"{param_bytes(moe_full) / 1e9:.1f} GB), widths as published")
         launches_by_path[name], flush_pairs[name] = serve_phase(torch, name, c, ecfg)
 
-    # smoke configs: one lifecycle on cuda and on cpu must agree exactly
+    # the paper's comparison systems and the reference plane, at full width
+    tparams = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    for policy in BASELINES:
+        launches_by_path[f"tinyllama-1.1b/{policy}"] = policy_phase(
+            torch, cfg, ecfg, tparams, policy)
+    launches_by_path.update(reference_phase(torch, cfg, ecfg, tparams))
+    del tparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # smoke configs: each lifecycle on cuda and on cpu must agree exactly,
+    # every interval audited and every flush's plan checked
+    os.environ["TIERSAN_LEVEL"] = "full"
+    os.environ["TIERSAN_PLAN_CHECK"] = "1"
     for arch in ("tinyllama-1.1b", MOE_ARCH):
         smoke_lifecycle(torch, arch)
+    for arch in ("tinyllama-1.1b", MOE_ARCH):
+        smoke_lifecycle(torch, arch, data_plane="reference")
+    for policy in BASELINES[:3]:
+        smoke_lifecycle(torch, "tinyllama-1.1b", policy=policy)
+    smoke_lifecycle(torch, "tinyllama-1.1b", qos=True)
+    del os.environ["TIERSAN_LEVEL"], os.environ["TIERSAN_PLAN_CHECK"]
 
     # ---------------- phase 4: the copies at the serve runs' flushes --- #
     flush = torch.ones(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
@@ -1157,7 +1194,7 @@ def serve_phase(torch, name, cfg, ecfg):
     # the copies: one gather and one scatter a flush (a launch per
     # MAX_PAIRS pairs), and the cache's one-frame prewarm
     kv = res["engine"].kv
-    copies = 1 + sum(-(-n // MAX_PAIRS) * k for n, k in kv.flush_pairs.items())
+    copies = expected_copies(kv, MAX_PAIRS)
     for kname in ("page_gather", "page_scatter"):
         if launches[kname] != copies:
             fail(f"{name}: {kname} launched {launches[kname]} times, expected "
@@ -1182,40 +1219,219 @@ def serve_phase(torch, name, cfg, ecfg):
     return launches, flush_pairs
 
 
-def smoke_lifecycle(torch, arch):
+def expected_copies(kv, max_pairs):
+    """Copy launches a run must count: one gather and one scatter a flush
+    (a launch per ``max_pairs`` pairs) and the staged cache's one-frame
+    prewarm; none on the reference plane's eager copies."""
+    if not kv.cfg.staged_migration:
+        return 0
+    return 1 + sum(-(-n // max_pairs) * k for n, k in kv.flush_pairs.items())
+
+
+def policy_phase(torch, cfg, ecfg, params, policy):
+    """Serve full-width ``cfg`` under a baseline policy on the batched
+    plane with launch counts set to 0 just before and read just after;
+    check the counts and the policy's semantics.  ``ideal`` gets no slow
+    tier and a fast tier that holds every page of the run."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.page_migrate import MAX_PAIRS
+    from repro_torch.launch.serve import ideal_num_fast, pages_needed, serve
+
+    requests, prompt_len, max_new = 8, 48, 32
+    pecfg = dataclasses.replace(ecfg, policy=policy)
+    if policy == "ideal":
+        pages = pages_needed(requests, prompt_len, max_new, ecfg.page_size)
+        pecfg = dataclasses.replace(pecfg, num_slow=0,
+                                    num_fast=ideal_num_fast(pages, ecfg.tpp))
+    ops.reset_launch_counts()
+    res = serve(cfg, params, pecfg, requests=requests, prompt_len=prompt_len,
+                max_new=max_new, seed=0, device="cuda")
+    launches = ops.launch_counts()
+    name = f"tinyllama-1.1b/{policy}"
+    eng, stats, steps, L = res["engine"], res["stats"], res["steps"], cfg.n_layers
+    kv = eng.kv
+    summary = {
+        "policy": policy, "num_fast": pecfg.num_fast, "num_slow": pecfg.num_slow,
+        "steps": steps, "ms_per_step": res["ms_per_step"],
+        "tokens_per_s": res["tokens_per_s"], "prefill_s": res["prefill_s"],
+        "local_fraction": stats["local_fraction"], "demoted": stats["demoted"],
+        "promoted": stats["promoted"], "migrated_bytes": stats["migrated_bytes"],
+        "flushes": kv.flushes, "launches": launches,
+    }
+    log(f"[policy] {name}: local_fraction {stats['local_fraction']} demoted "
+        f"{stats['demoted']} promoted {stats['promoted']} migrated_bytes "
+        f"{stats['migrated_bytes']} {res['ms_per_step']:.3f} ms/step")
+    log(f"[policy] summary {json.dumps(summary)}")
+    copies = expected_copies(kv, MAX_PAIRS)
+    expected = {"paged_attention": L * steps, "flash_attention": L * requests,
+                "router_topk": 0, "moe_route": 0, "moe_dispatch": 0, "moe_combine": 0,
+                "page_gather": copies, "page_scatter": copies}
+    for kname, n in expected.items():
+        if launches[kname] != n:
+            fail(f"{name}: {kname} launched {launches[kname]} times, expected {n}")
+    toks = [t for out in res["tokens"].values() for t in out]
+    if len(toks) != requests * max_new or not all(0 <= t < cfg.vocab for t in toks):
+        fail(f"{name}: malformed tokens")
+    moved = stats["demoted"] + stats["promoted"]
+    broken = {
+        "linux": moved != 0 or stats["migrated_bytes"] != 0 or copies != 1,
+        "numa_balancing": stats["demoted"] != 0,
+        "autotiering": stats["demoted"] == 0 or stats["promoted"] == 0,
+        "ideal": (stats["local_fraction"] != 1.0 or stats["slow_used"] != 0
+                  or moved != 0),
+    }[policy]
+    if broken:
+        fail(f"{name}: the policy's semantics broke: {json.dumps(summary)}")
+    kv.pool.check_invariants()
+    del res, eng, kv
+    return launches
+
+
+def reference_phase(torch, cfg, ecfg, params):
+    """The reference data plane at full width on the card, then the
+    batched plane on the same inputs.  The reference plane launches no
+    ``paged_attention`` and no copy kernel; its tokens must equal the
+    batched plane's, or differ first where its top-2 logit gap is below
+    ``NEAR_TIE`` (a near-tie, logged as such)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.page_migrate import MAX_PAIRS
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving import ServingEngine
+
+    requests, prompt_len, max_new = 2, 48, 8
+    L = cfg.n_layers
+    recorded = []  # (step, logits row) per reference decode, in lane order
+    plain_logits = ServingEngine._logits
+
+    def recording(self, x):
+        out = plain_logits(self, x)
+        recorded.append((self.steps, out[0, -1].detach().clone()))
+        return out
+
+    runs, launches_by_path = {}, {}
+    for plane in ("reference", "batched"):
+        ops.reset_launch_counts()
+        if plane == "reference":
+            ServingEngine._logits = recording
+        try:
+            res = serve(cfg, params, dataclasses.replace(ecfg, data_plane=plane),
+                        requests=requests, prompt_len=prompt_len, max_new=max_new,
+                        seed=0, device="cuda")
+        finally:
+            ServingEngine._logits = plain_logits
+        launches = ops.launch_counts()
+        launches_by_path[f"tinyllama-1.1b/{plane}-plane-2x8"] = launches
+        steps = res["steps"]
+        kv = res["engine"].kv
+        staged = plane == "batched"
+        if kv.cfg.staged_migration != staged or (not staged and kv.flushes):
+            fail(f"reference phase: {plane} plane staged {kv.cfg.staged_migration}, "
+                 f"{kv.flushes} flushes")
+        copies = expected_copies(kv, MAX_PAIRS)
+        expected = {"paged_attention": L * steps if staged else 0,
+                    "flash_attention": L * requests, "router_topk": 0, "moe_route": 0,
+                    "moe_dispatch": 0, "moe_combine": 0,
+                    "page_gather": copies, "page_scatter": copies}
+        for kname, n in expected.items():
+            if launches[kname] != n:
+                fail(f"reference phase, {plane} plane: {kname} launched "
+                     f"{launches[kname]} times, expected {n}")
+        runs[plane] = {"tokens": res["tokens"], "ms_per_step": res["ms_per_step"],
+                       "steps": steps, "stats": res["stats"], "launches": launches}
+        res["engine"].kv.pool.check_invariants()
+        del res, kv
+    ref, bat = runs["reference"], runs["batched"]
+    rids = sorted(ref["tokens"])
+    first = min(((i, rid) for rid in rids
+                 for i, (a, b) in enumerate(zip(ref["tokens"][rid], bat["tokens"][rid]))
+                 if a != b), default=None)
+    verdict = "equal"
+    if first is not None:
+        step, rid = first
+        rows = [row for s, row in recorded if s == step]
+        top2 = torch.topk(rows[rids.index(rid)].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        log(f"[reference] tokens first differ at decode step {step}, request "
+            f"{rid}: reference {ref['tokens'][rid][step]} batched "
+            f"{bat['tokens'][rid][step]}, reference top-2 logit gap {gap}")
+        if not gap < NEAR_TIE:
+            fail(f"reference plane tokens differ from the batched plane's at step "
+                 f"{step} (request {rid}) with a top-2 logit gap of {gap} >= {NEAR_TIE}")
+        verdict = f"near-tie at step {step}, gap {gap}"
+    elif any(len(ref["tokens"][r]) != max_new for r in rids):
+        fail("reference phase: malformed tokens")
+    log(f"[reference] tinyllama-1.1b full width, {requests} requests, prompt "
+        f"{prompt_len}, {max_new} new tokens: reference plane "
+        f"{ref['ms_per_step']:.3f} ms/step, batched plane {bat['ms_per_step']:.3f} "
+        f"ms/step; tokens {verdict}")
+    log(f"[reference] summary " + json.dumps({
+        p: {k: v for k, v in r.items() if k != "tokens"} for p, r in runs.items()}))
+    return launches_by_path
+
+
+def smoke_lifecycle(torch, arch, qos=False, **overrides):
     """The smoke config's scripted lifecycle on cuda and on cpu: every
-    observable field must be equal."""
+    observable field must be equal.  ``overrides`` change the engine
+    config (``data_plane``, ``policy``); ``qos`` runs the two-tenant QoS
+    lifecycle instead, which must shed a batch request on both devices."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import TppConfig
-    from repro_torch.launch.serve import lifecycle_trace
+    from repro_torch.launch.serve import lifecycle_trace, qos_lifecycle_trace
     from repro_torch.models.model import init_params, tree_map
+    from repro_torch.qos import QosConfig
     from repro_torch.serving import EngineConfig, ServingEngine
 
     scfg = get_smoke_config(arch)
     sparams = init_params(scfg, torch.Generator().manual_seed(0), device="cpu")
-    secfg = EngineConfig(page_size=4, num_fast=10, num_slow=64, recent_pages=1,
-                         topk_pages=2, tpp=TppConfig(demote_budget=16, promote_budget=8))
-    traces = {}
+    if qos:
+        secfg = EngineConfig(page_size=4, num_fast=8, num_slow=64, topk_pages=None,
+                             tpp=TppConfig(demote_budget=4, promote_budget=2),
+                             qos=QosConfig(mode="static", shares=(0.9, 0.1)))
+        trace_fn, label = qos_lifecycle_trace, "qos"
+    else:
+        secfg = EngineConfig(page_size=4, num_fast=10, num_slow=64, recent_pages=1,
+                             topk_pages=2,
+                             tpp=TppConfig(demote_budget=16, promote_budget=8),
+                             **overrides)
+        trace_fn, label = lifecycle_trace, f"{secfg.policy}/{secfg.data_plane}"
+    traces, checks = {}, {}
     devices = ("cuda", "cpu")
     for dev in devices:
         p = sparams if dev == "cpu" else tree_map(lambda t: t.to("cuda"), sparams)
-        traces[dev] = lifecycle_trace(ServingEngine(scfg, p, secfg, device=dev),
-                                      scfg.vocab)
+        eng = ServingEngine(scfg, p, secfg, device=dev)
+        traces[dev] = trace_fn(eng, scfg.vocab)
+        san = eng.kv.pool.tiersan
+        if san is None or san.level != "full" or not eng.kv.plan_check:
+            fail(f"{arch} {label} smoke lifecycle on {dev} ran without TierSan "
+                 "and the plan check")
+        checks[dev] = (san.checks, eng.kv.flushes)
     card, host = (traces[d] for d in devices)
-    for field in ("tokens", "stats", "finished_out", "tiers", "types", "vmstat"):
+    for field in host:
         a, b = card[field], host[field]
         if a != b:
             first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None) \
                 if isinstance(a, list) else None
-            fail(f"{arch} smoke lifecycle cuda != cpu in {field!r}"
+            fail(f"{arch} {label} smoke lifecycle cuda != cpu in {field!r}"
                  + (f" at index {first}: {a[first]} vs {b[first]}" if first is not None
                     else f": {a} vs {b}"))
-    if card["vmstat"]["pgdemote_total"] <= 0:
-        fail(f"{arch} smoke lifecycle did not demote")
-    log(f"[serve] {arch} smoke lifecycle cuda == cpu: "
+    if checks["cuda"] != checks["cpu"] or checks["cuda"][0] == 0:
+        fail(f"{arch} {label}: TierSan checks and flushes {checks}")
+    vm = card["vmstat"]
+    moved = vm["pgdemote_total"] + vm["pgpromote_total"]
+    if secfg.policy == "linux" and moved:
+        fail(f"{arch} {label} smoke lifecycle migrated {moved} pages")
+    if secfg.policy == "numa_balancing" and vm["pgdemote_total"]:
+        fail(f"{arch} {label} smoke lifecycle demoted")
+    if secfg.policy in ("tpp", "autotiering") and vm["pgdemote_total"] <= 0:
+        fail(f"{arch} {label} smoke lifecycle did not demote")
+    if qos and not card["shed_at_steps"]:
+        fail(f"{arch} {label} smoke lifecycle shed no batch request")
+    log(f"[serve] {arch} {label} smoke lifecycle cuda == cpu: "
         f"{sum(len(t) for t in card['tokens'])} tokens, "
-        f"demoted {card['vmstat']['pgdemote_total']}, "
-        f"promoted {card['vmstat']['pgpromote_total']}")
+        f"demoted {vm['pgdemote_total']}, promoted {vm['pgpromote_total']}, "
+        f"TierSan checks {checks['cuda'][0]}, flushes checked {checks['cuda'][1]}"
+        + (f", batch shed at steps {card['shed_at_steps']}, qos "
+           f"{json.dumps(card['stats'][-1]['qos'])}" if qos else ""))
 
 
 def _leaves(tree):

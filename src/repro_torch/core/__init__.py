@@ -10,8 +10,10 @@ library only):
   watermarks.
 * :class:`~repro_torch.core.control.TieringControl` /
   :data:`NULL_CONTROL` — the control-plane decision surface.
-* :func:`~repro_torch.core.policy.make_policy` and
-  :class:`~repro_torch.core.tpp.TppPolicy`.
+* :func:`~repro_torch.core.policy.make_policy`,
+  :class:`~repro_torch.core.tpp.TppPolicy` and the paper's comparison
+  baselines of :mod:`repro_torch.core.baselines` (``linux``,
+  ``numa_balancing``, ``autotiering``, ``ideal``).
 
 The port keeps its own copy so that it imports nothing of ``repro``.
 """

@@ -9,15 +9,13 @@ TPP policy (``repro_torch.core.tpp``) drives.  It owns:
 * the **watermark** machinery of §5.2 (min / alloc / demote, decoupled),
 * the ``VmStat`` counters of §5.5.
 
-Policies (TPP; the baselines are still to be ported) never touch
+Policies (TPP and the baselines of ``repro_torch.core.baselines``) never touch
 frames directly — they call ``allocate`` / ``demote_page`` /
 ``promote_page`` / ``evict_page`` and read LRU/watermark state.  The device
 data plane (serving engine) mirrors migrations with real buffer copies via
 the migration ops in ``repro_torch.kernels``.
 
-A copy of ``repro.core.page_pool`` with the same behaviour, less the
-TierSan runtime sanitizer hook (it arrives with the analysis slice; no
-placement decision depends on it).
+A copy of ``repro.core.page_pool`` with the same behaviour.
 """
 
 from __future__ import annotations
@@ -27,6 +25,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.tiersan import tiersan_from_env
 from repro_torch.core.control import NULL_CONTROL, AllocRequest, TieringControl
 from repro_torch.core.lru import NodeLru
 from repro_torch.core.types import (
@@ -114,6 +113,9 @@ class PagePool:
         # Host-local fast-tier budget (fleet control plane); defaults to
         # the physical capacity, i.e. no reservation.
         self.fast_budget = num_fast
+        # Runtime invariant sanitizer (TIERSAN_LEVEL=conservation|full);
+        # None when disabled — zero overhead on the interval path.
+        self.tiersan = tiersan_from_env()
 
     # ------------------------------------------------------------------ #
     # frame accounting
@@ -332,6 +334,8 @@ class PagePool:
         for page in self.pages.values():
             page.history = (page.history << 1) & ((1 << 64) - 1)
         self.control.note_interval()
+        if self.tiersan is not None:
+            self.tiersan.on_interval(self)
 
     # ------------------------------------------------------------------ #
     # migration (§5.1) — demote / promote / evict

@@ -114,19 +114,13 @@ def register_policy(cls):
 
 
 def make_policy(name: str, pool, seed: int = 0) -> PlacementPolicy:
-    """Instantiate a registered policy by name (protocol dispatch).
-
-    Only ``tpp`` is registered in the port so far; the comparison
-    baselines (``repro/core/baselines.py``) are ROADMAP Queue 1 item
-    "baselines.py".
-    """
-    # Importing the implementation module populates the registry.
+    """Instantiate a registered policy by name (protocol dispatch)."""
+    # Importing the implementation modules populates the registry.
+    from repro_torch.core import baselines as _baselines  # noqa: F401
     from repro_torch.core import tpp as _tpp  # noqa: F401
 
     if name not in POLICY_REGISTRY:
         raise ValueError(
-            f"unknown policy {name!r}; the port registers "
-            f"{sorted(POLICY_REGISTRY)} so far — the baselines are "
-            "ROADMAP Queue 1 item 'baselines.py'"
+            f"unknown policy {name!r}; choose from {sorted(POLICY_REGISTRY)}"
         )
     return POLICY_REGISTRY[name](pool, seed=seed)

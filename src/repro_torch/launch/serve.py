@@ -4,13 +4,19 @@
       --requests 8 --prompt-len 48 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --smoke --device cpu --policy autotiering --data-plane reference
 
 Counterpart of ``repro/launch/serve.py``.  Builds seeded random weights
-on the device, drives :class:`repro_torch.serving.ServingEngine` on the
-batched data plane (the one that reaches the CUDA kernels) and prints
-throughput and placement stats.  Runs on ``--device cuda`` (the
-default) or ``cpu``; float32 with TF32 off for matmul and cuDNN.  A
-model whose weights do not fit the card's free memory is refused
+on the device, drives :class:`repro_torch.serving.ServingEngine` and
+prints throughput and placement stats.  ``--policy`` picks TPP or one
+of the paper's comparison baselines (``linux``, ``numa_balancing``,
+``autotiering``; ``ideal`` gets no slow tier and a fast tier sized to
+hold every page of the run).  ``--data-plane`` picks the batched plane
+(the default, the one that reaches the CUDA kernels) or the
+one-sequence reference plane.  Runs on ``--device cuda`` (the default)
+or ``cpu``; float32 with TF32 off for matmul and cuDNN.  A model whose
+weights do not fit the card's free memory is refused
 (phi3.5-moe-42b-a6.6b at full depth): there is no depth option.
 
 ``--profile DIR`` then traces 16 decode steps with ``torch.profiler``
@@ -59,6 +65,25 @@ def check_fits(cfg: ModelConfig, device) -> None:
             "script (dataclasses.replace(cfg, stacks=((pattern, n),)), as "
             "chip_smoke.py does)."
         )
+
+
+def pages_needed(requests: int, prompt_len: int, max_new: int,
+                 page_size: int) -> int:
+    """KV pages a run of ``requests`` prompts decoding ``max_new`` tokens
+    reaches: each sequence holds ``prompt_len - 1`` prefilled tokens plus
+    one written per decode step."""
+    return requests * -(-(prompt_len - 1 + max_new) // page_size)
+
+
+def ideal_num_fast(pages: int, tpp: TppConfig) -> int:
+    """Fewest fast frames that hold ``pages`` pages with every allocation
+    above the min watermark (``PagePool.allocate`` keeps ``wm_min``
+    frames free): the fast tier of the ``ideal`` baseline, which has no
+    slow tier."""
+    n = pages + 1
+    while n - pages <= tpp.frames(n)[0]:
+        n += 1
+    return n
 
 
 def serve(cfg: ModelConfig, params: Any, ecfg: EngineConfig, requests: int,
@@ -136,6 +161,62 @@ def lifecycle_trace(eng: ServingEngine, vocab: int) -> Dict[str, Any]:
         "finished_out": finished.out,
         "tiers": tiers,
         "types": types,
+        "vmstat": eng.kv.pool.vmstat.as_dict(),
+    }
+
+
+def qos_lifecycle_trace(eng: ServingEngine, vocab: int) -> Dict[str, Any]:
+    """A scripted two-tenant lifecycle for an engine with QoS armed: a
+    latency-critical tenant (0) and a batch tenant (1) fill the fast
+    tier, a batch request arrives under that pressure, the batch job
+    pauses and finishes, and batch admission is tried again.  Returns
+    everything observable, ``stats()["qos"]`` and the steps at which a
+    batch request was shed (``AdmissionError`` with reason
+    ``"qos_pressure"``) among it.  Duck-typed over the engine, so the
+    same script drives the JAX engine."""
+    rng = np.random.default_rng(7)
+    eng.add_request(list(rng.integers(0, vocab, 30)), max_new=40,
+                    qos_class="latency_critical", tenant=0)
+    batch = eng.add_request(list(rng.integers(0, vocab, 20)), max_new=40,
+                            qos_class="batch", tenant=1)
+    tokens, stats, shed, admitted = [], [], [], []
+
+    def try_batch():
+        try:
+            admitted.append(eng.add_request([1, 2, 3], max_new=4,
+                                            qos_class="batch", tenant=1))
+        except RuntimeError as exc:  # AdmissionError of either package
+            if getattr(exc, "reason", None) != "qos_pressure":
+                raise
+            shed.append(eng.steps)
+
+    for _ in range(4):
+        tokens.append(eng.step())
+    try_batch()
+    stats.append(eng.stats())
+    eng.pause(batch)
+    for _ in range(8):
+        tokens.append(eng.step())
+    try_batch()
+    stats.append(eng.stats())
+    finished = eng.finish(batch)
+    try_batch()
+    for _ in range(6):
+        tokens.append(eng.step())
+    stats.append(eng.stats())
+    pages = eng.kv.pool.pages
+    eng.kv.pool.check_invariants()
+    eng.control.check_consistency(eng.kv.pool)
+    return {
+        "tokens": tokens,
+        "stats": stats,
+        "shed_at_steps": shed,
+        "admitted": admitted,
+        "finished_out": finished.out,
+        "tiers": {rid: [int(pages[p].tier) for p in eng.seqs[rid].pages]
+                  for rid in eng.seqs},
+        "types": {rid: [int(pages[p].page_type) for p in eng.seqs[rid].pages]
+                  for rid in eng.seqs},
         "vmstat": eng.kv.pool.vmstat.as_dict(),
     }
 
@@ -246,6 +327,11 @@ def main() -> None:
     ap.add_argument("--num-slow", type=int, default=64)
     ap.add_argument("--topk-pages", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--policy", default="tpp",
+                    choices=["tpp", "linux", "numa_balancing", "autotiering", "ideal"],
+                    help="placement policy; ideal runs with no slow tier and "
+                         "a fast tier sized to hold every page of the run")
+    ap.add_argument("--data-plane", default="batched", choices=["batched", "reference"])
     ap.add_argument("--profile", metavar="DIR",
                     help="after the timed run, trace 16 decode steps of a "
                          "fresh batch with torch.profiler into DIR")
@@ -255,16 +341,25 @@ def main() -> None:
 
     strict_fp32()
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    tpp = TppConfig(demote_budget=64, promote_budget=32)
+    num_fast, num_slow = args.num_fast, args.num_slow
+    if args.policy == "ideal":
+        # the paper's normalisation baseline: every page in the fast tier
+        pages = pages_needed(args.requests, args.prompt_len, args.max_new,
+                             args.page_size)
+        num_fast, num_slow = ideal_num_fast(pages, tpp), 0
+        print(f"policy=ideal: num_slow=0, num_fast={num_fast} (the run's "
+              f"{pages} pages plus the min watermark's free frames)")
     check_fits(cfg, args.device)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=args.device)
     res = serve(
         cfg, params,
         EngineConfig(
-            page_size=args.page_size, num_fast=args.num_fast,
-            num_slow=args.num_slow, topk_pages=args.topk_pages,
-            max_seqs=max(8, args.requests),
-            tpp=TppConfig(demote_budget=64, promote_budget=32),
+            page_size=args.page_size, num_fast=num_fast,
+            num_slow=num_slow, topk_pages=args.topk_pages,
+            max_seqs=max(8, args.requests), policy=args.policy,
+            data_plane=args.data_plane, tpp=tpp,
         ),
         args.requests, args.prompt_len, args.max_new, seed=args.seed,
         device=args.device,
@@ -273,7 +368,9 @@ def main() -> None:
     print(f"{res['n_tokens']} tokens in {res['steps']} steps on {args.device}: "
           f"{res['tokens_per_s']:.1f} tok/s, {res['ms_per_step']:.2f} ms/step "
           "(float32, TF32 off)")
-    print(f"policy=tpp local={s['local_fraction']:.3f} "
+    ecfg = res["engine"].ecfg
+    print(f"policy={ecfg.policy} data_plane={ecfg.data_plane} "
+          f"local={s['local_fraction']:.3f} "
           f"demoted={s['demoted']} promoted={s['promoted']} "
           f"migrated={s['migrated_bytes']/1e6:.1f}MB")
     if args.profile:

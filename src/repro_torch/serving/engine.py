@@ -1,10 +1,22 @@
 """Serving engine: continuous batching over the tiered paged KV cache.
 
-Counterpart of ``repro/serving/engine.py`` for the **batched** data
-plane, for GQA attention archs with a dense or an MoE FFN.  Prefill
-runs ``kernels.ops.flash_attention`` per layer over the prompt, and MoE
-blocks route through ``kernels.ops.router_topk``.  All active sequences
-decode in one step:
+Counterpart of ``repro/serving/engine.py`` for GQA attention archs with
+a dense or an MoE FFN.  Prefill runs ``kernels.ops.flash_attention`` per
+layer over the prompt, and MoE blocks route through the fused
+``kernels.ops.moe_route`` with ``moe_dispatch`` and ``moe_combine``
+around the expert products, on both data planes
+(``EngineConfig.data_plane``):
+
+* ``"batched"`` (the port's default, the plane that reaches the CUDA
+  kernels) — all active sequences decode in one step, below;
+* ``"reference"`` (the JAX engine's default) — one sequence at a time,
+  per-layer loops with decode attention in plain torch ops, per-token
+  cache writes, host-side page-key summaries and eager per-page
+  migration copies: slow, the executable specification the batched
+  plane is held against (the JAX reference plane computes the same
+  attention with ``jnp.einsum``, outside any Pallas kernel).
+
+On the batched plane all active sequences decode in one step:
 
 * top-k page selection: each sequence attends its last ``recent_pages``
   pages exactly plus the ``topk_pages`` older pages ranked by
@@ -20,17 +32,19 @@ decode in one step:
   pads them with trash-frame copies for jit-shape stability; the CUDA
   kernels need no fixed shape).
 
-The policy (TPP) receives each step's slow- and fast-tier page hits and
-migrates payloads through the cache's migration hook.
+The policy (``tpp`` or a baseline of ``repro_torch.core.baselines``)
+receives each step's slow- and fast-tier page hits and migrates
+payloads through the cache's migration hook.  ``EngineConfig.qos`` arms
+the multi-tenant control plane of ``repro_torch.qos`` on the KV pool.
 
-Not yet ported (each raises ``NotImplementedError``): the one-sequence
-``data_plane="reference"`` plane, the multi-tenant QoS control plane
-(``EngineConfig.qos``) and ``as_shard_pool`` (ROADMAP Queue 1).
+Not yet ported: ``as_shard_pool`` (it raises ``NotImplementedError``;
+ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,12 +59,18 @@ from repro_torch.models.attention import _rotate, make_cos_sin
 from repro_torch.models.ffn import ffn_fwd
 from repro_torch.models.model import ModelConfig, tree_map
 from repro_torch.models.moe import moe_fwd
+from repro_torch.qos import make_control
 from repro_torch.serving.kv_cache import KVCacheConfig, TieredKVCache, bucket as _bucket
 
 
 class AdmissionError(RuntimeError):
-    """Raised when ``add_request`` refuses a request (``reason="max_seqs"``:
-    the engine is at its sequence cap — finish one first)."""
+    """Raised when ``add_request`` refuses a request.
+
+    ``reason`` distinguishes the cause: ``"max_seqs"`` (engine at its
+    sequence cap — finish one first) vs ``"qos_pressure"`` (the tiering
+    control plane is shedding batch-class load while the fast tier is
+    under reclaim pressure; retry later or upgrade the class).
+    """
 
     def __init__(self, message: str, reason: str = "max_seqs") -> None:
         super().__init__(message)
@@ -67,9 +87,18 @@ class EngineConfig:
     policy: str = "tpp"
     tpp: TppConfig = dataclasses.field(default_factory=TppConfig)
     max_seqs: int = 8
-    data_plane: str = "batched"  # the only plane ported so far
-    qos: Optional[Any] = None  # multi-tenant QoS: not ported yet
+    # "batched" | "reference"; the JAX EngineConfig defaults to
+    # "reference", the port to the plane that runs the CUDA kernels
+    data_plane: str = "batched"
+    # Multi-tenant QoS (repro_torch.qos): a QosConfig arms the arbiter —
+    # or a SlowdownControllerConfig the SLO feedback controller — as the
+    # KV pool's TieringControl; requests are tagged with a tenant id +
+    # priority class (``add_request``), defaulting to ``qos_class``.
+    qos: Optional[Any] = None
     qos_class: str = "standard"
+    # Shed batch-class admissions while the control plane reports
+    # fast-tier pressure (``TieringControl.shed_batch_request``).
+    admission_control: bool = True
 
 
 @dataclasses.dataclass
@@ -107,7 +136,7 @@ def _flat_layers(params: Any, cfg: ModelConfig) -> List[Any]:
 
 
 class ServingEngine:
-    """Batched tiered-KV serving for GQA attention architectures.
+    """Tiered-KV serving for GQA attention architectures.
 
     ``params`` must already live on ``device``.  ``device`` defaults to
     ``"cuda"``; an engine asked for CUDA on a machine without it raises
@@ -137,17 +166,10 @@ class ServingEngine:
                     "ServingEngine pages GQA attention archs; SSM/hybrid "
                     "archs serve from O(1) recurrent state, MLA via dense path"
                 )
-        if engine.data_plane != "batched":
-            raise NotImplementedError(
-                f"data_plane={engine.data_plane!r} is not ported yet: ROADMAP "
-                "Queue 1 item 'reference data plane and eager copies'"
-            )
-        if engine.qos is not None:
-            raise NotImplementedError(
-                "EngineConfig.qos is not ported yet: ROADMAP Queue 1 item "
-                "'QoS and TierSan'"
-            )
-        if engine.topk_pages is not None and engine.recent_pages < 1:
+        if engine.data_plane not in ("reference", "batched"):
+            raise ValueError(f"unknown data_plane {engine.data_plane!r}")
+        if (engine.data_plane == "batched" and engine.topk_pages is not None
+                and engine.recent_pages < 1):
             raise ValueError(
                 "batched data plane needs recent_pages >= 1 with top-k "
                 "attention (the decode-tail page must be block-table "
@@ -172,29 +194,43 @@ class ServingEngine:
                 head_dim=a0.head_dim,
                 num_fast=engine.num_fast,
                 num_slow=engine.num_slow,
+                staged_migration=(engine.data_plane == "batched"),
             ),
             tpp=engine.tpp,
             device=self.device,
         )
+        # Any TieringControl (QosArbiter, SlowdownController, or a
+        # telemetry-only TenantAccounting) — built via make_control.
+        self.control = None
+        if engine.qos is not None:
+            self.control = make_control(
+                engine.qos, n_tenants=1, fast_frames=engine.num_fast
+            )
+            self.kv.pool.control = self.control
         self.policy = make_policy(engine.policy, self.kv.pool, seed=seed)
         self.seqs: Dict[int, _Seq] = {}
         self.requests: Dict[int, Request] = {}
         self._next_rid = 0
+        # page key summaries for top-k selection (reference plane):
+        # pid -> (L, Hkv, D) np, scored on the host as in the JAX engine
+        self._summaries: Dict[int, np.ndarray] = {}
         self.steps = 0
         # per-step per-sequence tier hit split {rid: (fast, slow)}
         self.last_hits: Dict[int, Tuple[int, int]] = {}
-        # per-slot device summary state
+        # batched plane: per-slot device summary state
         self._slot_of: Dict[int, int] = {}
         self._free_slots = list(range(engine.max_seqs - 1, -1, -1))
         self._mp_cap = 8
-        L, Hkv, D = cfg.n_layers, a0.n_kv_heads, a0.head_dim
-        # +1 trash slot: padded batch lanes accumulate there
-        self._ksum = torch.zeros((engine.max_seqs + 1, self._mp_cap, L, Hkv, D),
-                                 dtype=torch.float32, device=self.device)
-        self._kcnt = torch.zeros((engine.max_seqs + 1, self._mp_cap),
-                                 dtype=torch.float32, device=self.device)
-        pa0 = self.layers[0]
-        self._probe_params = (params["embed"], pa0["norm1"], pa0["attn"]["wq"])
+        if engine.data_plane == "batched":
+            L, Hkv, D = cfg.n_layers, a0.n_kv_heads, a0.head_dim
+            # +1 trash slot: padded batch lanes accumulate there
+            self._ksum = torch.zeros(
+                (engine.max_seqs + 1, self._mp_cap, L, Hkv, D),
+                dtype=torch.float32, device=self.device)
+            self._kcnt = torch.zeros((engine.max_seqs + 1, self._mp_cap),
+                                     dtype=torch.float32, device=self.device)
+            pa0 = self.layers[0]
+            self._probe_params = (params["embed"], pa0["norm1"], pa0["attn"]["wq"])
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -209,7 +245,13 @@ class ServingEngine:
         qos_class: Optional[str] = None,
         tenant: int = 0,
     ) -> int:
-        """Admit a request and prefill its prompt into the tiered cache."""
+        """Admit a request and prefill its prompt into the tiered cache.
+
+        ``tenant``/``qos_class`` feed the QoS control plane (ignored when
+        QoS is off).  With QoS armed, batch-class requests are **shed**
+        (AdmissionError ``reason="qos_pressure"``) while the control
+        plane reports fast-tier pressure.
+        """
         if len(self.seqs) >= self.ecfg.max_seqs:
             raise AdmissionError(
                 f"engine at max_seqs={self.ecfg.max_seqs}; finish() a "
@@ -217,12 +259,25 @@ class ServingEngine:
                 reason="max_seqs",
             )
         cls = qos_class or self.ecfg.qos_class
+        if self.control is not None:
+            if (self.ecfg.admission_control and cls == "batch"
+                    and self.control.shed_batch_request(self.kv.pool)):
+                raise AdmissionError(
+                    "batch-class request shed: fast tier under reclaim "
+                    "pressure with tenants over quota (control-plane "
+                    "admission gate)",
+                    reason="qos_pressure",
+                )
+            # validate/assign the class before any engine state mutates,
+            # so a bad qos_class can't leave a zombie sequence behind
+            self.control.configure_tenant(tenant, cls)
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=list(prompt), max_new=max_new)
         self.requests[rid] = req
         self.seqs[rid] = _Seq(rid, tenant=tenant, qos_class=cls)
-        self._slot_of[rid] = self._free_slots.pop()
+        if self.ecfg.data_plane == "batched":
+            self._slot_of[rid] = self._free_slots.pop()
         self._prefill(req)
         return rid
 
@@ -272,12 +327,14 @@ class ServingEngine:
         """Release a sequence; returns its (now detached) Request."""
         seq = self.seqs.pop(rid)
         for pid in seq.pages:
+            self._summaries.pop(pid, None)
             self.kv.free_page(pid)
         req = self.requests.pop(rid)
-        slot = self._slot_of.pop(rid)
-        self._ksum[slot] = 0.0
-        self._kcnt[slot] = 0.0
-        self._free_slots.append(slot)
+        if self.ecfg.data_plane == "batched":
+            slot = self._slot_of.pop(rid)
+            self._ksum[slot] = 0.0
+            self._kcnt[slot] = 0.0
+            self._free_slots.append(slot)
         return req
 
     # ---------------------------------------------------------------- #
@@ -333,7 +390,18 @@ class ServingEngine:
         if len(req.prompt) <= 1:
             return
         k_all, v_all = self._prefill_forward(req)  # (L, S, Hkv, D)
-        self._prefill_write_batched(seq, k_all, v_all)
+        if self.ecfg.data_plane == "batched":
+            self._prefill_write_batched(seq, k_all, v_all)
+            return
+        L, S = k_all.shape[0], k_all.shape[1]
+        kv_all = torch.cat(
+            [k_all.reshape(L, S, -1), v_all.reshape(L, S, -1)], dim=-1
+        )  # (L, S, W) — layout [all-k | all-v]
+        for t in range(S):
+            pid, slot = self._ensure_page(seq)
+            self.kv.write_token(pid, slot, kv_all[:, t, :])
+            seq.cur_len += 1
+        self._refresh_summaries(seq)
 
     def _prefill_write_batched(self, seq: _Seq, k_all: torch.Tensor,
                                v_all: torch.Tensor) -> None:
@@ -359,8 +427,19 @@ class ServingEngine:
         self._ksum[slot_id, :npages] = sums.movedim(0, 1)  # (npages, L, Hkv, D)
         self._kcnt[slot_id, :npages] = self._to_device(counts)
 
+    def _page_keys(self, pid: int) -> np.ndarray:
+        """One page's keys on the host, ``(L, P, Hkv, D)``."""
+        a0 = self.specs[0].attn
+        Hkv, D = a0.n_kv_heads, a0.head_dim
+        page = self.kv.gather_pages([pid])[0].cpu().numpy()  # (L, P, W)
+        return page[..., : Hkv * D].reshape(page.shape[0], page.shape[1], Hkv, D)
+
+    def _refresh_summaries(self, seq: _Seq) -> None:
+        for pid in seq.pages:
+            self._summaries[pid] = self._page_keys(pid).mean(axis=1)  # (L, Hkv, D)
+
     def _grow_summaries(self, needed: int) -> None:
-        if needed <= self._mp_cap:
+        if self.ecfg.data_plane != "batched" or needed <= self._mp_cap:
             return
         new_cap = _bucket(needed)
         pad = new_cap - self._mp_cap
@@ -392,18 +471,126 @@ class ServingEngine:
                   if not s.paused and not s.detached
                   and not self.requests[s.rid].done]
         self.last_hits = {}
-        out, slow_hits, fast_hits = self._decode_batched(active)
+        if self.ecfg.data_plane == "batched":
+            out, slow_hits, fast_hits = self._decode_batched(active)
+        else:
+            out = {}
+            slow_hits, fast_hits = [], []
+            for seq in active:
+                tok, s_hits, f_hits = self._decode_one(seq)
+                out[seq.rid] = tok
+                slow_hits += s_hits
+                fast_hits += f_hits
+                self.last_hits[seq.rid] = (len(f_hits), len(s_hits))
         for rid, tok in out.items():
             req = self.requests[rid]
             req.out.append(tok)
             if len(req.out) >= req.max_new:
                 req.done = True
+        if self.control is not None:
+            # per-tenant hotness + slowdown telemetry (tier-split feeds
+            # the slowdown controller's measured per-tenant slowdown)
+            self.control.note_hits(
+                np.fromiter(fast_hits, np.int64, count=len(fast_hits)),
+                np.fromiter(slow_hits, np.int64, count=len(slow_hits)),
+            )
+        # every policy receives both hit streams (NUMA balancing samples
+        # fast hits; the rest ignore them)
         self.policy.step(slow_hits, fast_hits)
         self.steps += 1
         if self.steps % 4 == 0:
-            self.kv.pool.end_interval()
+            self.kv.pool.end_interval()  # also ticks control.note_interval
         return out
 
+    # ------------------------- reference plane ---------------------- #
+    def _decode_one(self, seq: _Seq) -> Tuple[int, List[int], List[int]]:
+        """One sequence's decode step: attention over its selected pages
+        in plain torch ops, the new token's KV written per layer."""
+        req = self.requests[seq.rid]
+        last_tok = req.out[-1] if req.out else req.prompt[-1]
+        t = seq.cur_len  # position of the new token
+        dev = self.device
+        x = nn.embed(self.params["embed"],
+                     torch.tensor([[last_tok]], dtype=torch.int32, device=dev))
+        pos = torch.tensor([[t]], dtype=torch.int32, device=dev)
+
+        # page selection is shared across layers (pages span all layers);
+        # use the embedding-projected mean query of layer 0 as the probe.
+        a0 = self.specs[0].attn
+        p0 = self.layers[0]
+        q_probe = nn.dense(p0["attn"]["wq"], nn.rmsnorm(p0["norm1"], x))
+        q_mean = (q_probe.reshape(a0.n_kv_heads, -1, a0.head_dim)
+                  .mean(dim=1).cpu().numpy())  # (Hkv, D)
+        older = seq.pages[: max(0, len(seq.pages) - self.ecfg.recent_pages)]
+        older_scores = np.asarray([
+            float(np.einsum("hd,lhd->", q_mean, self._summaries[pid]))
+            if pid in self._summaries else -1e9
+            for pid in older
+        ])
+        sel = self._select_pages(seq, older_scores)
+
+        # touch + tier accounting (the TPP access stream)
+        s_hits, f_hits = [], []
+        for pid in sel:
+            tier = self.kv.pool.touch(pid)
+            (s_hits if tier == Tier.SLOW else f_hits).append(pid)
+
+        pages = self.kv.gather_pages(sel)  # (n, L, P, W)
+        n_sel = len(sel)
+        P = self.ecfg.page_size
+        # the written slots of each selected page
+        page_index = {pid: i for i, pid in enumerate(seq.pages)}
+        start = np.asarray([page_index[pid] * P for pid in sel], np.int64)
+        valid = (np.arange(P)[None, :] + start[:, None]) < t
+        vmask0 = torch.from_numpy(
+            np.concatenate([valid.reshape(-1), [True]])).to(dev)
+
+        kv_new_layers = []
+        for li, spec in enumerate(self.specs):
+            pa = self.layers[li]
+            a = spec.attn
+            h = nn.rmsnorm(pa["norm1"], x)
+            q = nn.dense(pa["attn"]["wq"], h).reshape(1, 1, a.n_heads, a.head_dim)
+            k = nn.dense(pa["attn"]["wk"], h).reshape(1, 1, a.n_kv_heads, a.head_dim)
+            v = nn.dense(pa["attn"]["wv"], h).reshape(1, 1, a.n_kv_heads, a.head_dim)
+            cos, sin = make_cos_sin(a, pos)
+            if cos is not None:
+                q = _rotate(a, q, cos, sin)
+                k = _rotate(a, k, cos, sin)
+
+            Hkv, D = a.n_kv_heads, a.head_dim
+            # explicit width: -1 is uninferable when sel is empty (first
+            # decode of a single-token prompt)
+            lay = pages[:, li].reshape(n_sel * P, pages.shape[-1])  # (nP, W)
+            ks = torch.cat([lay[:, : Hkv * D].reshape(-1, Hkv, D), k[0]], dim=0)
+            vs = torch.cat([lay[:, Hkv * D:].reshape(-1, Hkv, D), v[0]], dim=0)
+            vmask = vmask0
+            if a.window is not None:
+                # window mask by absolute position of each cache slot
+                abs_pos = np.concatenate([np.arange(P) + st for st in start] + [[t]])
+                vmask = vmask & torch.from_numpy(abs_pos > t - a.window).to(dev)
+
+            G = a.n_heads // Hkv
+            qg = q[0, 0].reshape(Hkv, G, D) / math.sqrt(D)
+            s = torch.einsum("hgd,thd->hgt", qg.float(), ks.float())
+            s = s.masked_fill(~vmask[None, None, :], -math.inf)
+            pr = torch.softmax(s, dim=-1)
+            o = torch.einsum("hgt,thd->hgd", pr, vs.float())
+            x = x + nn.dense(pa["attn"]["wo"], o.reshape(1, 1, -1).to(x.dtype))
+            if spec.has_ffn:
+                x = x + self._ffn(pa, spec, x)
+            kv_new_layers.append(torch.cat([k[0, 0].reshape(-1), v[0, 0].reshape(-1)]))
+
+        tok = int(self._logits(x)[0, -1].argmax())
+
+        # write the new token's KV and update summaries for its page
+        pid, slot = self._ensure_page(seq)
+        self.kv.write_token(pid, slot, torch.stack(kv_new_layers))
+        seq.cur_len += 1
+        self._summaries[pid] = self._page_keys(pid)[:, : slot + 1].mean(axis=1)
+        return tok, s_hits, f_hits
+
+    # ------------------------- batched plane ------------------------ #
     def _decode_batched(
         self, active: List[_Seq]
     ) -> Tuple[Dict[int, int], List[int], List[int]]:
@@ -534,12 +721,7 @@ class ServingEngine:
                 # engine: they count towards each expert's capacity
                 x = x + self._ffn(pa, spec, x)
             k_layers.append(k_t)
-        h = nn.rmsnorm(params["final_norm"], x)
-        if self.cfg.tie_embeddings:
-            logits = h @ params["embed"]["table"].T.to(h.dtype)
-        else:
-            logits = nn.dense(params["lm_head"], h)
-        toks_out = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        toks_out = self._logits(x)[:, -1].argmax(dim=-1).to(torch.int32)
         # incremental page-key summaries; padded lanes share the trash
         # slot, so the sum must accumulate duplicates
         k_all = torch.stack(k_layers, dim=1).float()  # (B, L, Hkv, D)
@@ -548,9 +730,17 @@ class ServingEngine:
         self._kcnt.index_put_(idx, torch.ones(B, device=self.device), accumulate=True)
         return toks_out
 
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and LM head: ``(B, 1, d)`` → ``(B, 1, vocab)``."""
+        h = nn.rmsnorm(self.params["final_norm"], x)
+        if self.cfg.tie_embeddings:
+            return h @ self.params["embed"]["table"].T.to(h.dtype)
+        return nn.dense(self.params["lm_head"], h)
+
     @staticmethod
     def _ffn(pa: Any, spec: Any, x: torch.Tensor) -> torch.Tensor:
-        """The block's FFN on ``norm2(x)``: MoE (``router_topk``) or dense."""
+        """The block's FFN on ``norm2(x)``: MoE (``moe_route``,
+        ``moe_dispatch``, ``moe_combine``) or dense."""
         h = nn.rmsnorm(pa["norm2"], x)
         if spec.moe is not None:
             return moe_fwd(pa["moe"], spec.moe, h)[0]
@@ -577,7 +767,7 @@ class ServingEngine:
 
     def stats(self) -> Dict[str, Any]:
         vs = self.kv.pool.vmstat
-        return {
+        out = {
             "steps": self.steps,
             "local_fraction": vs.local_access_fraction,
             "demoted": vs.pgdemote_total,
@@ -586,3 +776,6 @@ class ServingEngine:
             "fast_free": self.kv.pool.free_frames(Tier.FAST),
             "slow_used": self.kv.pool.used_frames(Tier.SLOW),
         }
+        if self.control is not None:
+            out["qos"] = self.control.qos_summary()
+        return out

@@ -16,30 +16,41 @@ Counterpart of ``repro/serving/kv_cache.py`` over torch stores:
   engine reports touches, TPP decides migrations, this class executes
   the payload copies.
 
-One policy interval's copies are staged and executed at the next
-payload access as one ``page_gather`` over both stores (K and V) into
-one staging tensor, then one ``page_scatter`` of it back, demotions
-first in the frame list (the JAX cache's ``staged_migration=True``; its
-eager per-page copies belong to the reference data plane, not ported
-yet).  The gather runs before the scatter, on the current CUDA stream
-in program order, which keeps a frame freed by a demotion and claimed
-by a promotion in the same interval correct.  The stores are updated in
-place.  The frame list holds only the live copies: the JAX cache pads
-every batch with trash-frame self-copies to a power-of-two width so
-that its jit-compiled copies keep one shape, but a CUDA kernel has no
-shape-specialised compile, so the port moves no padding.  The frame
-indices stay on the host and reach the kernel by value.
+With ``staged_migration=True`` (the batched data plane, and the port's
+default) one policy interval's copies are staged and executed at the
+next payload access as one ``page_gather`` over both stores (K and V)
+into one staging tensor, then one ``page_scatter`` of it back,
+demotions first in the frame list.  The gather runs before the scatter,
+on the current CUDA stream in program order, which keeps a frame freed
+by a demotion and claimed by a promotion in the same interval correct.
+The stores are updated in place.  The frame list holds only the live
+copies: the JAX cache pads every batch with trash-frame self-copies to
+a power-of-two width so that its jit-compiled copies keep one shape,
+but a CUDA kernel has no shape-specialised compile, so the port moves
+no padding.  The frame indices stay on the host and reach the kernel by
+value.
+
+With ``staged_migration=False`` (the reference data plane; the JAX
+cache's default) every migration copies its page eagerly with a plain
+indexed assignment of K and V, as the JAX cache's ``.at[].set`` does:
+no copy kernel is built or launched.  Both produce identical payloads.
+
+``TIERSAN_PLAN_CHECK=1`` verifies every flushed batch for frame hazards
+under the gathers-first staging the kernels execute and keeps the last
+plan (``last_plan``, :mod:`repro_torch.analysis.plan_verify`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.plan_verify import CopyOp, check_plan, plan_from_staged
 from repro_torch.core import PagePool, PageType, Tier, TppConfig
 from repro_torch.kernels import ops as kernel_ops
 
@@ -66,6 +77,10 @@ class KVCacheConfig:
     num_fast: int  # frames in the fast tier
     num_slow: int
     dtype: str = "float32"
+    # Batch one policy interval's payload copies into one staged gather
+    # and scatter (the batched data plane); False copies eagerly per page
+    # (the reference plane).  The JAX cache defaults to False.
+    staged_migration: bool = True
 
     @property
     def kv_width(self) -> int:
@@ -113,11 +128,20 @@ class TieredKVCache:
         #: flushes that moved pages, and a histogram of the pairs each moved
         self.flushes = 0
         self.flush_pairs: Counter = Counter()
-        # Build and load the copy kernels before the first flush on the
-        # serving path needs them: a one-frame trash self-copy.
-        idx = _host_frames([self.trash_frame])
-        stores = (self.k_store, self.v_store)
-        kernel_ops.page_scatter(stores, idx, kernel_ops.page_gather(stores, idx))
+        # Debug-build plan verification (TIERSAN_PLAN_CHECK=1): every
+        # flushed batch is checked for frame hazards under the
+        # gathers-first staging the kernels execute, and the last plan is
+        # kept for offline triage.
+        self.plan_check = (
+            os.environ.get("TIERSAN_PLAN_CHECK", "") not in ("", "0")
+        )
+        self.last_plan: Optional[List[CopyOp]] = None
+        if cfg.staged_migration:
+            # Build and load the copy kernels before the first flush on
+            # the serving path needs them: a one-frame trash self-copy.
+            idx = _host_frames([self.trash_frame])
+            stores = (self.k_store, self.v_store)
+            kernel_ops.page_scatter(stores, idx, kernel_ops.page_gather(stores, idx))
 
     def _frames(self, frames: Sequence[int]) -> torch.Tensor:
         """Host frame list → int32 index tensor on the store's device."""
@@ -144,11 +168,15 @@ class TieredKVCache:
     # ---------------------------------------------------------------- #
     def _on_migrate(self, pid: int, src: Tier, src_frame: int, dst: Tier,
                     dst_frame: int) -> None:
-        """PagePool hook: stage one page's copy between tiers."""
+        """PagePool hook: copy (or stage) one page between tiers."""
         src_g = self._global(src, src_frame)
         dst_g = self._global(dst, dst_frame)
         self.migrated_pages += 1
         self.migrated_bytes += self.cfg.page_bytes
+        if not self.cfg.staged_migration:
+            self.k_store[dst_g] = self.k_store[src_g]
+            self.v_store[dst_g] = self.v_store[src_g]
+            return
         if src_g in self._pending_dst:
             # chained move (the page migrated earlier this interval and
             # its payload has not landed yet) — settle the batch first.
@@ -183,6 +211,14 @@ class TieredKVCache:
             return
         pending, self._pending = self._pending, []
         self._pending_src, self._pending_dst = set(), set()
+        if self.plan_check:
+            self.last_plan = plan_from_staged(pending)
+            check_plan(
+                self.last_plan,
+                num_frames=self.trash_frame + 1,
+                trash_frame=self.trash_frame,
+                staging="gathers-first",
+            )
         order = ([c for c in pending if c.demote]
                  + [c for c in pending if not c.demote])
         stores = (self.k_store, self.v_store)
@@ -200,6 +236,15 @@ class TieredKVCache:
     # ---------------------------------------------------------------- #
     # payload plumbing
     # ---------------------------------------------------------------- #
+    def write_token(self, pid: int, slot: int, kv: torch.Tensor) -> None:
+        """Write one token's KV ``(L, W)``, laid out ``[all-k | all-v]``,
+        into page ``pid`` at ``slot``."""
+        gf = self.global_frame(pid)
+        self._flush_if_touches(gf)
+        L, Hkv, D = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
+        self.k_store[gf, :, :, slot, :] = kv[:, : Hkv * D].reshape(L, Hkv, D)
+        self.v_store[gf, :, :, slot, :] = kv[:, Hkv * D:].reshape(L, Hkv, D)
+
     def write_tokens(self, pids: Sequence[int], slots: Sequence[int],
                      k_tok: torch.Tensor, v_tok: torch.Tensor) -> None:
         """Batched token write: ``k_tok``/``v_tok`` are ``(T, L, Hkv, D)``

@@ -47,12 +47,14 @@ def test_no_jax_or_repro_import(path):
 
 def test_port_covers_its_layout():
     names = {p.relative_to(REPO / "src" / "repro_torch").parts[0] for p in FILES[:-1]}
-    assert {"core", "kernels", "models", "serving", "configs", "launch"} <= names
+    assert {"core", "kernels", "models", "serving", "configs", "launch", "analysis",
+            "qos"} <= names
 
 
 def test_serving_engine_import_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    code = ("import sys, repro_torch.serving.engine, repro_torch.launch.serve; "
+    code = ("import sys, repro_torch.serving.engine, repro_torch.launch.serve, "
+            "repro_torch.qos, repro_torch.analysis, repro_torch.core.baselines; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax')); "
             "assert not any(m == 'repro' or m.startswith('repro.') "

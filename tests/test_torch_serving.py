@@ -59,8 +59,9 @@ def moe():
     pytest.param("phi3.5-moe-42b-a6.6b", None, id="phi3.5-moe-exact"),
 ])
 def test_lifecycle_matches_jax_batched_engine(request, arch, topk):
-    """The MoE case routes every prefill and decode step through
-    ``router_topk`` and its capacity dispatch, on the padded decode batch."""
+    """The MoE case routes every prefill and decode step through the fused
+    ``moe_route`` with ``moe_dispatch`` and ``moe_combine`` and JAX's
+    capacity semantics, on the padded decode batch."""
     jcfg, jparams, tparams = request.getfixturevalue(
         "tiny" if arch == "tinyllama-1.1b" else "moe")
     want = jax_lifecycle_trace(jcfg, jparams, JaxEngineConfig(
