@@ -40,13 +40,24 @@ into ``build/``) and runs these phases:
    the engine's transposed views), S=512, D=64, a ragged S=513, phi3.5's
    heads at S=2048, widths off its templates (D=80, 96) and rows off
    16-byte alignment (the element-by-element loader); plus the
-   small sweeps of ``tests/test_kernels.py``.  Times each kernel, its
+   small sweeps of ``tests/test_kernels.py``.  The five other families
+   the engine serves (``FAMILIES``) at their own shapes:
+   ``paged_attention`` at each one's decode over its serve store
+   (gemma3-4b (8, 8, 256) Hkv=4 with and without its window of 1024,
+   phi3-medium (8, 40, 128) Hkv=10, chatglm3 (8, 32, 128) G=16,
+   qwen2-vl (8, 12, 128) G=6, musicgen (8, 24, 64) G=1) and at the
+   windowed run's block table (2 lanes of 70 pages padded to 128);
+   ``flash_attention`` at each one's prefill (S=47) and at the windowed
+   run's prompt (S=1099, D=256, window 1024 and none); the copies, exact,
+   at each one's frame (458,752 to 4,718,592 B).  Times each kernel, its
    plain version and, where one exists, the one PyTorch call that
    computes the same function (the copies in phase 4; ``torch.mm`` of
    the router product for the route, beside the unfused chain it
    replaces).
 3. **Serve** — full-width tinyllama-1.1b, then full-width phi3.5-moe
-   cut to 8 of its 32 layers (42.7 GB of float32 weights), each with
+   cut to 8 of its 32 layers (42.7 GB of float32 weights), then the
+   five ``FAMILIES`` uncut at their published widths (phi3-medium-14b:
+   58.6 GB), each with
    seeded random weights through ``ServingEngine`` on ``cuda``: 8
    requests, prompt 48, 32 new tokens each, with demotions and
    promotions.  Launch counts are set to 0 before each run and read
@@ -68,14 +79,19 @@ into ``build/``) and runs these phases:
    tier).  Then the reference data plane at full width (2 requests,
    prompt 48, 8 new tokens): no ``paged_attention`` and no copy launch,
    and tokens equal to the batched plane's on the same inputs up to a
-   logged near-tie (top-2 logit gap below ``NEAR_TIE``).  Last, with
+   logged near-tie (top-2 logit gap below ``NEAR_TIE``).  Then the same
+   two planes serve full-width gemma3-4b on prompts of 1100 tokens, past
+   its local layers' window of 1024, with exact attention, 48 fast and
+   128 slow frames (2 requests × 16 tokens): the first serve run whose
+   window masks, with tokens equal between the planes up to a logged
+   near-tie and placement equal to ``WINDOWED_PLACEMENT``.  Last, with
    ``TIERSAN_LEVEL=full`` and ``TIERSAN_PLAN_CHECK=1``, scripted
-   smoke-size lifecycles run on ``cuda`` and on ``cpu``: both archs on
-   both planes, tinyllama under each baseline, and a two-tenant QoS
+   smoke-size lifecycles run on ``cuda`` and on ``cpu``: all seven archs
+   on both planes, tinyllama under each baseline, and a two-tenant QoS
    lifecycle that must shed a batch request; tokens, stats (with
    ``stats()["qos"]``), VmStat, tiers and page types must be equal.
-4. **Copies** — ``page_gather`` and ``page_scatter`` timed at each serve
-   run's median flush (pairs × both stores, at its frame) and at 64
+4. **Copies** — ``page_gather`` and ``page_scatter`` timed at each of the
+   seven serve runs' median flush (pairs × both stores, at its frame) and at 64
    live frames of one store, beside their plain versions, the library
    calls (``index_select`` / ``index_copy_`` once per store) and the
    bytes bound; and one gather then scatter, as a flush runs them.
@@ -108,6 +124,18 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:18
 # kernels must not change it
 PLACEMENT = {"local_fraction": 0.6205357142857143, "demoted": 208, "promoted": 205}
 BASELINES = ("linux", "numa_balancing", "autotiering", "ideal")
+# the other families the JAX engine pages, served uncut at their
+# published widths at the same config as tinyllama-1.1b
+FAMILIES = ("gemma3-4b", "phi3-medium-14b", "chatglm3-6b", "qwen2-vl-2b",
+            "musicgen-medium")
+# the windowed run: gemma3-4b's prompts outgrow its local layers' window of
+# 1024, with exact attention (every page attended, no page-score ties)
+WINDOWED_ARCH = "gemma3-4b"
+WINDOWED = {"requests": 2, "prompt_len": 1100, "max_new": 16}
+# its placement: every page of both sequences is touched every step, so it
+# depends on no weight (the smoke config gives the same on the CPU)
+WINDOWED_PLACEMENT = {"local_fraction": 0.3249551166965889, "demoted": 484,
+                      "promoted": 480}
 # the reference plane's tokens may differ from the batched plane's only
 # where the reference logits' top two are closer than this
 NEAR_TIE = 1e-4
@@ -128,6 +156,29 @@ def gpu_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_usage(text: str):
+    """``(function, registers, spills)`` for each kernel in ``nvcc
+    -Xptxas=-v`` output, names demangled where ``c++filt`` is found."""
+    import shutil
+
+    out, fn, spills = [], "?", ""
+    for line in text.splitlines():
+        line = line.strip()
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif "spill" in line:
+            spills = line
+        elif "registers" in line:
+            out.append([fn, line.split(":", 1)[-1].strip(), spills])
+            fn, spills = "?", ""
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in out),
+                               capture_output=True, text=True, timeout=60).stdout
+        for r, name in zip(out, names.splitlines()):
+            r[0] = name
+    return [tuple(r) for r in out]
 
 
 # --------------------------------------------------------------------- #
@@ -228,7 +279,11 @@ def attn_work(torch, case):
     return nbytes, flops
 
 
-def check_paged_attention(torch, gen, F, L, moe_L, flush, fails):
+def check_paged_attention(torch, gen, F, L, moe_L, flush, fails, families, windowed):
+    """``families``: name → config of each family served in phase 3, checked
+    and timed at its decode shape over its serve store (every window its
+    layers use); ``windowed``: ``(name, cfg, F, MP, pages)`` of the
+    windowed run, checked and timed at its block table."""
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import paged_attention as pa
 
@@ -329,13 +384,56 @@ def check_paged_attention(torch, gen, F, L, moe_L, flush, fails):
 
     def timed(case):
         args = (case["q"], case["k_pages"], case["v_pages"], case["block_table"])
-        kw = dict(page_pos=case["page_pos"], q_pos=case["q_pos"])
+        kw = dict(page_pos=case["page_pos"], q_pos=case["q_pos"], window=case["window"])
         nbytes, flops = attn_work(torch, case)
         b_ms, b_by = bound(nbytes, flops, str(case["q"].dtype).removeprefix("torch."))
         return dict(
             kernel_ms=time_ms(torch, lambda: pa.paged_attention(*args, **kw), flush),
             plain_ms=time_ms(torch, lambda: pa.paged_attention_plain(*args, **kw), flush),
             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=flops)
+
+    # each family's decode at batch 8 over its serve store, P=16, MP=8,
+    # 2 pad lanes; a windowed family with and without its window
+    fam, first = {}, None
+    for fname, fcfg in families.items():
+        a = fcfg.all_specs()[0].attn
+        H, Hkv, D, FL = a.n_heads, a.n_kv_heads, a.head_dim, fcfg.n_layers
+        for window in sorted({s.attn.window for s in fcfg.all_specs()},
+                             key=lambda w: w or 0):
+            case = attn_case(torch, gen, 8, H, Hkv, 16, 8, D, F, FL, torch.float32,
+                             window, pad_lanes=2)
+            shape = (f"q (8, {H}, {D}) f32, G={H // Hkv}, store[:, li] of (F={F}, "
+                     f"L={FL}, {Hkv}, 16, {D}), block table (8, 8), window={window}, "
+                     "2 pad lanes")
+            run(f"{fname} decode {shape} {plan(case)}", case, "float32",
+                exact_zero_rows=2)
+            key = fname + (f" window={window}" if window else "")
+            fam[key] = dict(timed(case), plan=plan(case), shape=shape)
+            first = first or (key, case)
+            del case
+    # the first family case timed once more after the others: in whole
+    # runs of this script on an H100 80GB HBM3 (700 W) its first reading
+    # came out at 40-58 us, against 15.5 for the same call with a window
+    # that masks nothing (PERF.md, open questions)
+    key, case = first
+    fam[key]["repeat"] = timed(case)
+    del first, case
+    # the windowed run: 2 lanes whose block tables hold every page (exact
+    # attention) padded to the bucket; the window masks the first pages
+    wname, wcfg, wF, wMP, wpages = windowed
+    a = wcfg.all_specs()[0].attn
+    for window in (a.window, None):
+        case = attn_case(torch, gen, 2, a.n_heads, a.n_kv_heads, 16, wMP, a.head_dim,
+                         wF, wcfg.n_layers, torch.float32, window, pad_lanes=0,
+                         pad_tail=wMP - wpages)
+        shape = (f"q (2, {a.n_heads}, {a.head_dim}) f32, store[:, li] of (F={wF}, "
+                 f"L={wcfg.n_layers}, {a.n_kv_heads}, 16, {a.head_dim}), block table "
+                 f"(2, {wMP}) with {wpages} pages, q_pos {int(case['q_pos'][0])}, "
+                 f"window={window}")
+        run(f"{wname} windowed run {shape} {plan(case)}", case, "float32")
+        fam[f"{wname} windowed run window={window}"] = dict(
+            timed(case), plan=plan(case), shape=shape)
+        del case
 
     t = timed(main)
     # the same call with L2 warm (no flush), and the floor of this timing:
@@ -372,6 +470,7 @@ def check_paged_attention(torch, gen, F, L, moe_L, flush, fails):
             timed(long_ctx), plan=plan(long_ctx), shape="q (8, 32, 64) f32, store "
             "(1025, 1, 4, 16, 64), block table (8, 64) of distinct frames, "
             "1 pad entry a lane, 1 pad lane"),
+        "families": fam,
         "checks": len(checks),
     }
 
@@ -895,9 +994,13 @@ def flash_work(torch, q, k, causal, window):
     return nbytes, 4.0 * D * B * H * int(mask.sum())
 
 
-def check_flash_attention(torch, gen, flush, fails):
+def check_flash_attention(torch, gen, flush, fails, families, windowed):
     """Kernel against plain version within ``TOL``; the serve shapes go
-    through the engine's (1, S, H, D) → (1, H, S, D) transposed views."""
+    through the engine's (1, S, H, D) → (1, H, S, D) transposed views.
+    ``families``: name → config of each family served in phase 3, checked
+    and timed at its prefill (S=47, its first layer's window);
+    ``windowed``: ``(name, cfg, S)`` of the windowed run's prefill, with
+    and without the window."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -964,18 +1067,45 @@ def check_flash_attention(torch, gen, flush, fails):
     odd = tuple(torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape) for t in kb)
     run("unaligned rows B=1 H=8 Hkv=2 S=512 D=64", *odd, True, None, "float32")
 
-    def timed(q, k, v, iters=50):
-        nbytes, flops = flash_work(torch, q, k, True, None)
+    # each family's prefill of a 48-token prompt, windowed as its first layer
+    fam_cases = {}
+    for fname, fcfg in families.items():
+        a = fcfg.all_specs()[0].attn
+        H, Hkv, D = a.n_heads, a.n_kv_heads, a.head_dim
+        qkv = (rand(1, 47, H, D).transpose(1, 2), rand(1, 47, Hkv, D).transpose(1, 2),
+               rand(1, 47, Hkv, D).transpose(1, 2))
+        run(f"{fname} prefill H={H} Hkv={Hkv} S=47 D={D} window={a.window} (views)",
+            *qkv, True, a.window, "float32")
+        fam_cases[fname] = (qkv, a.window)
+    # the windowed run's prompt, longer than the window: local and global layers
+    wname, wcfg, wS = windowed
+    a = wcfg.all_specs()[0].attn
+    wqkv = (rand(1, wS, a.n_heads, a.head_dim).transpose(1, 2),
+            rand(1, wS, a.n_kv_heads, a.head_dim).transpose(1, 2),
+            rand(1, wS, a.n_kv_heads, a.head_dim).transpose(1, 2))
+    for window in (a.window, None):
+        run(f"{wname} windowed run prefill H={a.n_heads} Hkv={a.n_kv_heads} S={wS} "
+            f"D={a.head_dim} window={window} (views)", *wqkv, True, window, "float32")
+        fam_cases[f"{wname} windowed run S={wS} window={window}"] = (wqkv, window)
+
+    def timed(q, k, v, iters=50, window=None):
+        nbytes, flops = flash_work(torch, q, k, True, window)
         b_ms, b_by = bound(nbytes, flops, str(q.dtype).removeprefix("torch."))
-        lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-        want = fa.flash_attention_plain(q, k, v)
+        sdpa = dict(is_causal=True)
+        if window is not None:  # SDPA takes a window as an explicit mask
+            qp = torch.arange(q.shape[2], device=q.device)[:, None]
+            kp = torch.arange(k.shape[2], device=q.device)[None, :]
+            sdpa = dict(attn_mask=(kp <= qp) & (kp > qp - window))
+        lib = F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **sdpa)
+        want = fa.flash_attention_plain(q, k, v, window=window)
         return dict(
-            kernel_ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), flush, iters),
-            plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(q, k, v), flush,
-                             iters),
+            kernel_ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, window=window),
+                              flush, iters),
+            plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, window=window), flush, iters),
             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=flops,
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), flush, iters),
+                q, k, v, enable_gqa=True, **sdpa), flush, iters),
             library_max_abs_err=(lib.float() - want.float()).abs().max().item())
 
     f32 = [c for c in checks if c["dtype"] == "float32"]
@@ -997,6 +1127,10 @@ def check_flash_attention(torch, gen, flush, fails):
         "bf16_S512_D64_Hkv2": timed(*kb16),
         "padded_S512_D96_Hkv2": timed(*d96),
         "general_path_unaligned_S512_D64_Hkv2": timed(*odd),
+        "families": {name: dict(timed(*qkv, window=window), shape=(
+            f"q {tuple(qkv[0].shape)}, k/v {tuple(qkv[1].shape)} f32, causal, "
+            f"window={window}, transposed views"))
+            for name, (qkv, window) in fam_cases.items()},
         "checks": len(checks),
     }
 
@@ -1014,9 +1148,10 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.core import TppConfig
     from repro_torch.kernels import build
-    from repro_torch.launch.serve import strict_fp32
+    from repro_torch.launch.serve import pages_needed, strict_fp32
     from repro_torch.models.model import init_params, param_bytes
     from repro_torch.serving import EngineConfig
+    from repro_torch.serving.kv_cache import bucket
 
     t_start = time.perf_counter()
     # ---------------- phase 1: device --------------------------------- #
@@ -1032,9 +1167,8 @@ def main() -> None:
     log(f"[build] {sorted(logs) or 'cached'} in {time.perf_counter() - t0:.1f} s "
         f"into {build.BUILD_DIR.relative_to(ROOT)}/")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, regs, spills in ptxas_usage(text):
+            log(f"[build] {name}: {fn}: {regs}; {spills}")
 
     # the serving configuration of phase 3 (and the kernel shapes it gives)
     cfg = get_config("tinyllama-1.1b")
@@ -1043,31 +1177,43 @@ def main() -> None:
     ecfg = EngineConfig(page_size=16, num_fast=24, num_slow=64, topk_pages=4,
                         max_seqs=8, tpp=TppConfig(demote_budget=64, promote_budget=32))
     F = ecfg.num_fast + ecfg.num_slow + 1
+    fam_cfgs = {name: get_config(name) for name in FAMILIES}
+    win_cfg = fam_cfgs[WINDOWED_ARCH]
+    # 2 × 70 pages in 48 fast frames: the run tiers
+    win_ecfg = dataclasses.replace(ecfg, topk_pages=None, num_fast=48, num_slow=128)
+    win_pages = pages_needed(1, WINDOWED["prompt_len"], WINDOWED["max_new"],
+                             ecfg.page_size)
+    windowed_attn = (WINDOWED_ARCH, win_cfg, win_ecfg.num_fast + win_ecfg.num_slow + 1,
+                     bucket(win_pages), win_pages)
 
     # ---------------- phase 2: kernels -------------------------------- #
     fails: list = []
     gen = torch.Generator(device="cuda").manual_seed(1234)
     flush = torch.ones(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
-    rows = [check_paged_attention(torch, gen, F, cfg.n_layers, MOE_LAYERS, flush, fails)]
+    rows = [check_paged_attention(torch, gen, F, cfg.n_layers, MOE_LAYERS, flush, fails,
+                                  fam_cfgs, windowed_attn)]
     # the copy kernels at each serve path's frame; timed after phase 3, at
     # the flush sizes the serve runs give them
     moe_frame = frame_shape(moe_cfg, ecfg)
     frames = {"tinyllama-1.1b": frame_shape(cfg, ecfg), MOE_ARCH: moe_frame}
-    copy_checks = (check_page_migrate(torch, gen, F, frames["tinyllama-1.1b"], fails)
-                   + check_page_migrate(torch, gen, F, moe_frame, fails, sweeps=False))
+    frames.update({name: frame_shape(c, ecfg) for name, c in fam_cfgs.items()})
+    copy_checks = check_page_migrate(torch, gen, F, frames["tinyllama-1.1b"], fails)
+    for name in list(frames)[1:]:
+        copy_checks += check_page_migrate(torch, gen, F, frames[name], fails, sweeps=False)
     log(f"[kernels] page_gather/page_scatter: {copy_checks} exact checks")
     rows.append(check_router_topk(torch, gen, flush, fails))
     rows += check_moe_route(torch, gen, moe_cfg, flush, fails)
     rows[-3]["moe_fwd_cuda_vs_cpu"] = check_moe_fwd(torch, moe_cfg, fails)
     check_empty_inputs(torch, fails)
-    rows.append(check_flash_attention(torch, gen, flush, fails))
+    rows.append(check_flash_attention(torch, gen, flush, fails, fam_cfgs,
+                                      (WINDOWED_ARCH, win_cfg, WINDOWED["prompt_len"] - 1)))
     del flush
     if fails:
         fail("; ".join(fails))
 
     # ---------------- phase 3: serve ---------------------------------- #
     launches_by_path, flush_pairs = {}, {}
-    for name, c in (("tinyllama-1.1b", cfg), (MOE_ARCH, moe_cfg)):
+    for name, c in (("tinyllama-1.1b", cfg), (MOE_ARCH, moe_cfg), *fam_cfgs.items()):
         if c is moe_cfg:
             log(f"[serve] {MOE_ARCH}: depth cut from {moe_full.n_layers} to "
                 f"{moe_cfg.n_layers} layers ({param_bytes(moe_cfg) / 1e9:.1f} GB of "
@@ -1085,14 +1231,24 @@ def main() -> None:
     del tparams
     gc.collect()
     torch.cuda.empty_cache()
+    # the first serve run whose window masks: both planes of gemma3-4b on
+    # prompts longer than its local window
+    wparams = init_params(win_cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    launches_by_path.update(reference_phase(
+        torch, win_cfg, win_ecfg, wparams, name=WINDOWED_ARCH,
+        placement=WINDOWED_PLACEMENT, **WINDOWED))
+    del wparams
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # smoke configs: each lifecycle on cuda and on cpu must agree exactly,
     # every interval audited and every flush's plan checked
     os.environ["TIERSAN_LEVEL"] = "full"
     os.environ["TIERSAN_PLAN_CHECK"] = "1"
-    for arch in ("tinyllama-1.1b", MOE_ARCH):
+    for arch in ("tinyllama-1.1b", MOE_ARCH) + FAMILIES:
         smoke_lifecycle(torch, arch)
-    for arch in ("tinyllama-1.1b", MOE_ARCH):
+    for arch in ("tinyllama-1.1b", MOE_ARCH) + FAMILIES:
         smoke_lifecycle(torch, arch, data_plane="reference")
     for policy in BASELINES[:3]:
         smoke_lifecycle(torch, "tinyllama-1.1b", policy=policy)
@@ -1126,6 +1282,11 @@ def main() -> None:
                 moe_t["flush"][kname],
                 gather_then_scatter_ms=moe_t["flush"]["gather_then_scatter_ms"],
                 one_store_64_live=moe_t["one_store_64_live"][kname]),
+            "families": {name: dict(
+                copy_times[name]["flush"][kname],
+                gather_then_scatter_ms=copy_times[name]["flush"]["gather_then_scatter_ms"],
+                one_store_64_live=copy_times[name]["one_store_64_live"][kname])
+                for name in FAMILIES},
         })
     for r in rows:
         log(f"[kernels] {r['name']}: max_abs_err {r['max_abs_err']} "
@@ -1151,10 +1312,11 @@ def serve_phase(torch, name, cfg, ecfg):
     and the pool's invariants.  Frees the weights before it returns."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.page_migrate import MAX_PAIRS
-    from repro_torch.launch.serve import profile_decode, serve
-    from repro_torch.models.model import init_params
+    from repro_torch.launch.serve import check_fits, profile_decode, serve
+    from repro_torch.models.model import init_params, param_bytes
 
     requests, prompt_len, max_new = 8, 48, 32
+    check_fits(cfg, "cuda")  # refuses, rather than cuts, a model that does not fit
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -1173,7 +1335,8 @@ def serve_phase(torch, name, cfg, ecfg):
         "arch": name, "layers": cfg.n_layers, "steps": res["steps"],
         "n_tokens": res["n_tokens"], "ms_per_step": res["ms_per_step"],
         "tokens_per_s": res["tokens_per_s"], "prefill_s": res["prefill_s"],
-        "peak_device_memory_bytes": peak, "stats": stats, "launches": launches,
+        "weight_bytes": param_bytes(cfg), "peak_device_memory_bytes": peak,
+        "stats": stats, "launches": launches,
     }
     log(f"[serve] {name}: {res['n_tokens']} tokens in {res['steps']} decode steps: "
         f"{res['tokens_per_s']:.2f} tok/s, {res['ms_per_step']:.3f} ms/step, "
@@ -1203,7 +1366,9 @@ def serve_phase(torch, name, cfg, ecfg):
     if placement != PLACEMENT:
         fail(f"{name}: placement {placement}, expected {PLACEMENT}")
     toks = [t for out in res["tokens"].values() for t in out]
-    if len(toks) != requests * max_new or not all(0 <= t < cfg.vocab for t in toks):
+    # musicgen's argmax runs over its vocab × 4 codebook table, as in JAX
+    n_ids = cfg.vocab * cfg.n_codebooks
+    if len(toks) != requests * max_new or not all(0 <= t < n_ids for t in toks):
         fail(f"{name}: serve phase produced malformed tokens")
     kv.pool.check_invariants()
     flush_pairs = kv.flush_pairs.copy()
@@ -1287,19 +1452,21 @@ def policy_phase(torch, cfg, ecfg, params, policy):
     return launches
 
 
-def reference_phase(torch, cfg, ecfg, params):
+def reference_phase(torch, cfg, ecfg, params, name="tinyllama-1.1b", requests=2,
+                    prompt_len=48, max_new=8, placement=None):
     """The reference data plane at full width on the card, then the
     batched plane on the same inputs.  The reference plane launches no
     ``paged_attention`` and no copy kernel; its tokens must equal the
     batched plane's, or differ first where its top-2 logit gap is below
-    ``NEAR_TIE`` (a near-tie, logged as such)."""
+    ``NEAR_TIE`` (a near-tie, logged as such).  Both planes must place
+    pages alike, and as ``placement`` where one is given."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.page_migrate import MAX_PAIRS
     from repro_torch.launch.serve import serve
     from repro_torch.serving import ServingEngine
 
-    requests, prompt_len, max_new = 2, 48, 8
     L = cfg.n_layers
+    tag = f"{requests}x{max_new}" + (f"-prompt{prompt_len}" if prompt_len != 48 else "")
     recorded = []  # (step, logits row) per reference decode, in lane order
     plain_logits = ServingEngine._logits
 
@@ -1320,12 +1487,12 @@ def reference_phase(torch, cfg, ecfg, params):
         finally:
             ServingEngine._logits = plain_logits
         launches = ops.launch_counts()
-        launches_by_path[f"tinyllama-1.1b/{plane}-plane-2x8"] = launches
+        launches_by_path[f"{name}/{plane}-plane-{tag}"] = launches
         steps = res["steps"]
         kv = res["engine"].kv
         staged = plane == "batched"
         if kv.cfg.staged_migration != staged or (not staged and kv.flushes):
-            fail(f"reference phase: {plane} plane staged {kv.cfg.staged_migration}, "
+            fail(f"{name} reference phase: {plane} plane staged {kv.cfg.staged_migration}, "
                  f"{kv.flushes} flushes")
         copies = expected_copies(kv, MAX_PAIRS)
         expected = {"paged_attention": L * steps if staged else 0,
@@ -1334,7 +1501,7 @@ def reference_phase(torch, cfg, ecfg, params):
                     "page_gather": copies, "page_scatter": copies}
         for kname, n in expected.items():
             if launches[kname] != n:
-                fail(f"reference phase, {plane} plane: {kname} launched "
+                fail(f"{name} reference phase, {plane} plane: {kname} launched "
                      f"{launches[kname]} times, expected {n}")
         runs[plane] = {"tokens": res["tokens"], "ms_per_step": res["ms_per_step"],
                        "steps": steps, "stats": res["stats"], "launches": launches}
@@ -1355,15 +1522,22 @@ def reference_phase(torch, cfg, ecfg, params):
             f"{rid}: reference {ref['tokens'][rid][step]} batched "
             f"{bat['tokens'][rid][step]}, reference top-2 logit gap {gap}")
         if not gap < NEAR_TIE:
-            fail(f"reference plane tokens differ from the batched plane's at step "
+            fail(f"{name}: reference plane tokens differ from the batched plane's at step "
                  f"{step} (request {rid}) with a top-2 logit gap of {gap} >= {NEAR_TIE}")
         verdict = f"near-tie at step {step}, gap {gap}"
     elif any(len(ref["tokens"][r]) != max_new for r in rids):
-        fail("reference phase: malformed tokens")
-    log(f"[reference] tinyllama-1.1b full width, {requests} requests, prompt "
-        f"{prompt_len}, {max_new} new tokens: reference plane "
+        fail(f"{name} reference phase: malformed tokens")
+    places = {p: {k: r["stats"][k] for k in (*PLACEMENT, "migrated_bytes")}
+              for p, r in runs.items()}
+    if places["reference"] != places["batched"]:
+        fail(f"{name} reference phase: the planes placed pages differently: {places}")
+    if placement is not None and {k: places["batched"][k] for k in placement} != placement:
+        fail(f"{name} reference phase: placement {places['batched']}, expected {placement}")
+    log(f"[reference] {name} full width, {requests} requests, prompt "
+        f"{prompt_len}, {max_new} new tokens, top-k pages {ecfg.topk_pages}, windows "
+        f"{sorted({s.attn.window or 0 for s in cfg.all_specs()})}: reference plane "
         f"{ref['ms_per_step']:.3f} ms/step, batched plane {bat['ms_per_step']:.3f} "
-        f"ms/step; tokens {verdict}")
+        f"ms/step; tokens {verdict}; placement {json.dumps(places['batched'])}")
     log(f"[reference] summary " + json.dumps({
         p: {k: v for k, v in r.items() if k != "tokens"} for p, r in runs.items()}))
     return launches_by_path

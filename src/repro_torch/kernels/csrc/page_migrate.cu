@@ -8,8 +8,10 @@
 //
 // over one or two stores s (the cache's K and V) in one launch.  A frame
 // is one whole KV page of every layer, (L, Hkv, P, D) contiguous
-// elements: 360,448 bytes for tinyllama-1.1b and 524,288 for phi3.5-moe
-// in float32 at P = 16.
+// elements, in float32 at P = 16: 360,448 bytes for tinyllama-1.1b,
+// 458,752 for chatglm3-6b and qwen2-vl-2b, 524,288 for phi3.5-moe (8
+// layers), 2,228,224 for gemma3-4b, 3,276,800 for phi3-medium-14b and
+// 4,718,592 for musicgen-medium.
 //
 // Bound: bytes.  A launch reads and writes n * stores * frame_bytes and
 // does no arithmetic: a flush of 14 pairs over tinyllama's two stores
@@ -31,10 +33,19 @@
 //   Chunks of 8 KB (tinyllama's frame is 44 of them, phi3.5's 64) in 8
 //   stages beat 16 KB in 4 on the card: the persistent grid's last
 //   items are smaller, so its blocks finish closer together.
-// * The staging tensor stays in L2 between the two phases of a flush
-//   (9-14 MB against 50 MB): the gather writes it with an evict_last
-//   hint and the scatter reads it with evict_first; the frames the
-//   gather reads are migrating away, so it reads them evict_first too.
+// * The staging tensor can stay in L2 between the two phases of a flush:
+//   the gather writes it with an evict_last hint and the scatter reads it
+//   with evict_first; the frames the gather reads are migrating away, so
+//   it reads them evict_first too.  That pays only while the staging fits
+//   the 50 MB L2.  A serve run's median flush is 12 pairs over both
+//   stores: 8.7 MB of staging for tinyllama-1.1b, 11 MB for chatglm3 and
+//   qwen2-vl, 53 MB for gemma3-4b, 79 MB for phi3-medium and 113 MB for
+//   musicgen-medium.  On an H100 80GB HBM3 at 700 W a gather then a
+//   scatter took 15.1-18.0 us against 19.9-22.8 for the two alone at the
+//   first three, 66.4 against 69.4 at gemma3, and no less than the two
+//   alone at the last two (106.5 against 103.9, 153.2 against 152.6 us):
+//   there the staging goes through HBM, and each copy runs at 90-95% of
+//   HBM's rate (chip_smoke.py, phase 4; PERF.md).
 // Scatter writes in place.  Duplicate target frames are legal only with
 // identical payloads, so the order of those racing writes does not
 // matter.

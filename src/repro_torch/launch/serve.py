@@ -6,6 +6,12 @@
       --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --device cpu --policy autotiering --data-plane reference
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+      --smoke --device cpu
+
+``--arch`` takes each architecture the JAX engine pages: tinyllama-1.1b,
+gemma3-4b, phi3-medium-14b, chatglm3-6b, qwen2-vl-2b, musicgen-medium and
+phi3.5-moe-42b-a6.6b.
 
 Counterpart of ``repro/launch/serve.py``.  Builds seeded random weights
 on the device, drives :class:`repro_torch.serving.ServingEngine` and
@@ -50,8 +56,9 @@ def strict_fp32() -> None:
 
 def check_fits(cfg: ModelConfig, device) -> None:
     """Refuse a model whose float32 weights exceed the card's free memory
-    (phi3.5-moe-42b-a6.6b at its 32 layers is 167 GB), rather than cut
-    it silently or fail part way through building it."""
+    (phi3.5-moe-42b-a6.6b at its 32 layers is 167 GB; phi3-medium-14b's
+    58.6 GB fit an 80 GB card), rather than cut it silently or fail part
+    way through building it."""
     device = torch.device(device)
     if device.type != "cuda":
         return
@@ -316,7 +323,9 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    from repro_torch.configs import get_config, get_smoke_config, list_archs
+
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)
@@ -336,8 +345,6 @@ def main() -> None:
                     help="after the timed run, trace 16 decode steps of a "
                          "fresh batch with torch.profiler into DIR")
     args = ap.parse_args()
-
-    from repro_torch.configs import get_config, get_smoke_config
 
     strict_fp32()
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

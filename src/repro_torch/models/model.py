@@ -76,20 +76,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     Draws come from ``generator`` on its own device (pass a CUDA
     generator to build full-width weights on the card).
     """
-    if cfg.n_codebooks != 1 or cfg.vision_stub:
-        raise NotImplementedError(
-            "codebook and vision-stub models are not ported yet: ROADMAP "
-            "Queue 1 item 'other model families'"
-        )
     kw = dict(dtype=dtype, device=device)
+    K = cfg.n_codebooks  # musicgen: one table row per (codebook, id)
     p: Params = {
-        "embed": nn.embedding_init(generator, cfg.vocab, cfg.d_model, **kw),
+        "embed": nn.embedding_init(generator, cfg.vocab * K, cfg.d_model, **kw),
         "stacks": [init_stack(generator, pat, reps, cfg.d_model, **kw)
                    for pat, reps in cfg.stacks],
         "final_norm": nn.rmsnorm_init(cfg.d_model, **kw),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = nn.dense_init(generator, cfg.d_model, cfg.vocab, std=0.02, **kw)
+        p["lm_head"] = nn.dense_init(generator, cfg.d_model, cfg.vocab * K,
+                                     std=0.02, **kw)
+    if cfg.vision_stub:
+        # qwen2-vl: the stub frontend's projection of precomputed patch
+        # embeddings (the serving engine feeds text only and never reads it)
+        p["patch_proj"] = nn.dense_init(generator, cfg.d_model, cfg.d_model, **kw)
     return p
 
 

@@ -38,6 +38,8 @@ class MoeConfig:
     n_shared: int = 0
     d_ff_shared: int = 0  # total shared-expert width
     capacity_factor: float = 1.25
+    # read by no code in either package; kept so configs equal field for field
+    router_noise: float = 0.0
 
 
 def init_moe(generator: torch.Generator, d_model: int, cfg: MoeConfig,

@@ -5,8 +5,10 @@ A model is ``n_layers`` blocks arranged as a repeating **pattern**;
 parameters of each pattern position are **stacked over repeats**, so the
 tree matches the JAX package's leaf for leaf (``init_stack``,
 ``repro/models/transformer.py:225-253``).  The port builds attention
-blocks with a dense FFN or an MoE FFN; SSM mixers, MLA and shared
-(LoRA) blocks raise ``NotImplementedError`` until their slices.
+blocks (GQA or MHA, every rope variant, windowed or not) with a dense
+FFN or an MoE FFN: every block of the seven architectures the serving
+engine pages.  SSM mixers (mamba2, mLSTM, sLSTM), MLA and shared (LoRA)
+blocks raise ``NotImplementedError`` until the training path's slice.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from repro_torch.models.ffn import init_ffn
 from repro_torch.models.moe import MoeConfig, init_moe
 from repro_torch.models.nn import Params
 
-_LATER = ("ROADMAP Queue 1 item 'other model families' / 'training path'")
+_LATER = ("ROADMAP Queue 1 item 7, 'training path' (deepseek-v2-lite's MLA, "
+          "zamba2's mamba2 and shared blocks, xlstm's mLSTM and sLSTM)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -171,11 +171,14 @@ def test_params_from_jax_round_trips_leaf_for_leaf():
         np.testing.assert_array_equal(got.numpy(), want, err_msg=path)
 
 
-def test_init_params_matches_jax_tree_names_shapes_dtypes():
-    jcfg = jax_smoke_config("tinyllama-1.1b")
+@pytest.mark.parametrize("arch", [
+    "tinyllama-1.1b", "gemma3-4b", "phi3-medium-14b", "chatglm3-6b", "qwen2-vl-2b",
+    "musicgen-medium", "phi3.5-moe-42b-a6.6b"])
+def test_init_params_matches_jax_tree_names_shapes_dtypes(arch):
+    jcfg = jax_smoke_config(arch)
     jflat = _flatten(jax.tree_util.tree_map(
         np.asarray, jax_init_params(jax.random.PRNGKey(0), jcfg)))
-    tp = init_params(get_smoke_config("tinyllama-1.1b"),
+    tp = init_params(get_smoke_config(arch),
                      torch.Generator().manual_seed(0), device="cpu")
     tflat = _flatten(tp)
     assert sorted(jflat) == sorted(tflat)
