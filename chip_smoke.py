@@ -49,9 +49,13 @@ into ``build/``) and runs these phases:
    windowed run's block table (2 lanes of 70 pages padded to 128);
    ``flash_attention`` at each one's prefill (S=47) and at the windowed
    run's prompt (S=1099, D=256, window 1024 and none); the copies, exact,
-   at each one's frame (458,752 to 4,718,592 B).  Times each kernel, its
+   at each one's frame (458,752 to 4,718,592 B).  The traffic runs' shapes
+   (phase 4): ``paged_attention`` with P=4 over a (273, 22, 4, 4, 64)
+   store at padded batch 1, 2, 4 × block tables of 2-16 entries, in
+   float32 and bfloat16, and the copies, exact, at its 90,112-byte
+   frame.  Times each kernel, its
    plain version and, where one exists, the one PyTorch call that
-   computes the same function (the copies in phase 4; ``torch.mm`` of
+   computes the same function (the copies in phase 6; ``torch.mm`` of
    the router product for the route, beside the unfused chain it
    replaces).
 3. **Serve** — full-width tinyllama-1.1b, then full-width phi3.5-moe
@@ -90,9 +94,29 @@ into ``build/``) and runs these phases:
    on both planes, tinyllama under each baseline, and a two-tenant QoS
    lifecycle that must shed a batch request; tokens, stats (with
    ``stats()["qos"]``), VmStat, tiers and page types must be equal.
-4. **Copies** — ``page_gather`` and ``page_scatter`` timed at each of the
-   seven serve runs' median flush (pairs × both stores, at its frame) and at 64
-   live frames of one store, beside their plain versions, the library
+4. **Traffic** — the continuous-batching front end
+   (``repro_torch.traffic``) over full-width tinyllama-1.1b with the
+   traffic benchmark's engine (16 fast, 256 slow frames of 4 tokens,
+   4 lanes, QoS): Poisson and MMPP traces of 56 requests × relief
+   ``shed`` and ``control`` with exact attention, each summary and
+   placement equal to the smoke config's run of the same trace on the
+   CPU, with exact launch counts; the Poisson/``control`` trace at the
+   benchmark's top-4 pages on both planes, tokens equal; a cuda-vs-cpu
+   smoke lifecycle of the scheduler under ``TIERSAN_LEVEL=full`` that
+   ends with every frame free; the card's wall times and a profile of
+   8 generate steps (``measured``), apart from the scheduler's modeled
+   TTFT and TPOT (``modeled_ms``).
+5. **Expert tier** — ``repro_torch.serving.expert_tier`` at phi3.5-moe's
+   published expert widths (314,572,800 B an expert): 51 of 8 × 16
+   experts in an HBM bank, all of them in a pinned host bank, on the
+   expert-tiering benchmark's stream under ``linux``, ``autotiering``
+   and ``tpp``; counts equal to the CPU's and ``EXPERT_COUNTS``, every
+   expert bit for bit after the migrations, the host link's rates and
+   the lookups timed.
+6. **Copies** — ``page_gather`` and ``page_scatter`` timed at each of the
+   seven serve runs' and the traffic runs' median flush (pairs × both
+   stores, at its frame) and at 64 live frames of one store, beside
+   their plain versions, the library
    calls (``index_select`` / ``index_copy_`` once per store) and the
    bytes bound; and one gather then scatter, as a flush runs them.
 
@@ -110,6 +134,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -228,15 +253,18 @@ def bound(nbytes: float, flops: float, dtype: str = "float32"):
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------- #
 def attn_case(torch, gen, B, H, Hkv, P, MP, D, F, L, dtype, window, pad_lanes,
-              pad_tail=1, distinct=False):
+              pad_tail=1, distinct=False, stores=None):
     """Random position-mode inputs over an (F, L, Hkv, P, D) store: the
     last ``pad_tail`` entries of each lane are pad entries on the trash
-    frame; ``distinct`` gives every entry its own frame."""
+    frame; ``distinct`` gives every entry its own frame.  ``stores``, a
+    (K, V) pair of that shape and ``dtype``, is used instead of new ones."""
     from repro_torch.kernels.paged_attention import PAD_PAGE_POS
 
     dev = "cuda"
-    store_k = torch.randn((F, L, Hkv, P, D), generator=gen, device=dev).to(dtype)
-    store_v = torch.randn((F, L, Hkv, P, D), generator=gen, device=dev).to(dtype)
+    if stores is None:
+        stores = tuple(torch.randn((F, L, Hkv, P, D), generator=gen, device=dev).to(dtype)
+                       for _ in range(2))
+    store_k, store_v = stores
     q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
     trash = F - 1
     if distinct:
@@ -473,6 +501,64 @@ def check_paged_attention(torch, gen, F, L, moe_L, flush, fails, families, windo
         "families": fam,
         "checks": len(checks),
     }
+
+
+def check_traffic_attention(torch, gen, F, cfg, page_size, flush, fails):
+    """``paged_attention`` at the traffic runs' decode shapes: tinyllama's
+    heads over a store of ``F`` frames of ``page_size`` tokens (P=4 takes
+    the ``P <= 8`` template), padded batch B in {1, 2, 4} (one pad lane
+    at B=4, the engine's bucket of 3 lanes) × block-table width MP in
+    {2, 4, 8, 16}, one pad entry a lane; float32 and bfloat16 against the
+    plain version, pad rows exactly 0.  Returns each float32 case's
+    times beside its bound and plain time, and the largest errors."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import paged_attention as pa
+
+    a = cfg.all_specs()[0].attn
+    H, Hkv, D, L = a.n_heads, a.n_kv_heads, a.head_dim, cfg.n_layers
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    times = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        stores = tuple(torch.randn((F, L, Hkv, page_size, D), generator=gen,
+                                   device="cuda").to(dtype) for _ in range(2))
+        for B in (1, 2, 4):
+            pad = 1 if B == 4 else 0
+            for MP in (2, 4, 8, 16):
+                case = attn_case(torch, gen, B, H, Hkv, page_size, MP, D, F, L, dtype,
+                                 None, pad_lanes=pad, stores=stores)
+                got = ops.paged_attention(**case, impl="kernel")
+                torch.cuda.synchronize()
+                want = ops.paged_attention(**case, impl="ref")
+                err = (got.float() - want.float()).abs().max().item()
+                ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                    got.float(), want.float(), atol=TOL[dtype_name], rtol=TOL[dtype_name])
+                if pad:
+                    ok &= bool((got[-pad:] == 0).all())
+                errs[dtype_name] = max(errs[dtype_name], err)
+                NS = pa.split_plan(B, Hkv, H // Hkv, MP, build.sm_count("cuda"))[2]
+                name = f"Bp={B} MP={MP} P={page_size} pad_lanes={pad} NS={NS}"
+                if not ok:
+                    fails.append(f"paged_attention traffic {name} {dtype_name}: "
+                                 f"max_abs_err {err}")
+                if dtype_name == "float32":
+                    args = (case["q"], case["k_pages"], case["v_pages"], case["block_table"])
+                    kw = dict(page_pos=case["page_pos"], q_pos=case["q_pos"])
+                    nbytes, flops = attn_work(torch, case)
+                    b_ms, b_by = bound(nbytes, flops)
+                    times[name] = dict(
+                        kernel_ms=time_ms(torch, lambda: pa.paged_attention(*args, **kw),
+                                          flush),
+                        plain_ms=time_ms(torch, lambda: pa.paged_attention_plain(
+                            *args, **kw), flush),
+                        bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes)
+                del case
+        del stores
+    out = {"shape": f"q (Bp, {H}, {D}) f32, store[:, li] of (F={F}, L={L}, {Hkv}, "
+                    f"{page_size}, {D}), block table (Bp, MP), position mode",
+           "max_abs_err": errs["float32"], "max_abs_err_bf16": errs["bfloat16"],
+           "checks": 2 * len(times), **times}
+    log(f"[kernels] paged_attention at the traffic shapes {json.dumps(out)}")
+    return out
 
 
 def frame_shape(cfg, ecfg):
@@ -997,6 +1083,8 @@ def flash_work(torch, q, k, causal, window):
 def check_flash_attention(torch, gen, flush, fails, families, windowed):
     """Kernel against plain version within ``TOL``; the serve shapes go
     through the engine's (1, S, H, D) → (1, H, S, D) transposed views.
+    The traffic phase's prefills, tinyllama's heads at each prompt length
+    of ``DEFAULT_MIX``, are checked each and timed at three.
     ``families``: name → config of each family served in phase 3, checked
     and timed at its prefill (S=47, its first layer's window);
     ``windowed``: ``(name, cfg, S)`` of the windowed run's prefill, with
@@ -1005,6 +1093,7 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.traffic import DEFAULT_MIX
 
     checks = []
 
@@ -1032,6 +1121,17 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
         run(f"{name} H={H} Hkv={Hkv} S={S} D={D} (views)", q, k, v, True, None,
             "float32")
         timed_cases[name] = (q, k, v)
+    # the traffic runs' prefills (and restarts after an eviction): tinyllama's
+    # heads at every prompt length DEFAULT_MIX draws
+    lo = min(m.prompt_len[0] for m in DEFAULT_MIX)
+    hi = max(m.prompt_len[1] for m in DEFAULT_MIX)
+    for S in range(lo, hi + 1):
+        qkv = (rand(1, S, 32, 64).transpose(1, 2), rand(1, S, 4, 64).transpose(1, 2),
+               rand(1, S, 4, 64).transpose(1, 2))
+        run(f"tinyllama-1.1b traffic prefill H=32 Hkv=4 S={S} D=64 (views)", *qkv, True,
+            None, "float32")
+        if S in (lo, (lo + hi) // 2, hi):
+            timed_cases[f"tinyllama-1.1b traffic prefill S={S}"] = qkv
     # the sweeps of tests/test_kernels.py:26-37
     for (B, H, Hkv, S, D, causal, window) in [
             (1, 4, 4, 128, 64, True, None), (2, 8, 2, 96, 32, True, None),
@@ -1122,6 +1222,9 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
         "tolerance_bf16": TOL["bfloat16"],
         **timed(*timed_cases["phi3.5-moe prefill"]),
         "tinyllama_prefill_D64_Hkv4": timed(*timed_cases["tinyllama-1.1b prefill"]),
+        "tinyllama_traffic_prefills": {
+            f"S={q.shape[2]}": timed(q, k, v) for name, (q, k, v) in timed_cases.items()
+            if name.startswith("tinyllama-1.1b traffic")},
         "kernel_bench_S512_D64_Hkv2": timed(*kb),
         "phi3_5_heads_S2048_D128_Hkv8": timed(*long, iters=10),
         "bf16_S512_D64_Hkv2": timed(*kb16),
@@ -1145,6 +1248,7 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
              "checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.benchmarks.traffic_bench import ENGINE_CONFIG as TRAFFIC_ECFG
     from repro_torch.configs import get_config
     from repro_torch.core import TppConfig
     from repro_torch.kernels import build
@@ -1192,7 +1296,7 @@ def main() -> None:
     flush = torch.ones(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
     rows = [check_paged_attention(torch, gen, F, cfg.n_layers, MOE_LAYERS, flush, fails,
                                   fam_cfgs, windowed_attn)]
-    # the copy kernels at each serve path's frame; timed after phase 3, at
+    # the copy kernels at each serve path's frame; timed in phase 6, at
     # the flush sizes the serve runs give them
     moe_frame = frame_shape(moe_cfg, ecfg)
     frames = {"tinyllama-1.1b": frame_shape(cfg, ecfg), MOE_ARCH: moe_frame}
@@ -1200,6 +1304,17 @@ def main() -> None:
     copy_checks = check_page_migrate(torch, gen, F, frames["tinyllama-1.1b"], fails)
     for name in list(frames)[1:]:
         copy_checks += check_page_migrate(torch, gen, F, frames[name], fails, sweeps=False)
+    # the traffic phase's shapes: P=4 pages, 273 frames, its (22, 4, 4, 64) frame
+    traffic_F = TRAFFIC_ECFG.num_fast + TRAFFIC_ECFG.num_slow + 1
+    traffic_frame = frame_shape(cfg, TRAFFIC_ECFG)
+    copy_checks += check_page_migrate(torch, gen, traffic_F, traffic_frame, fails,
+                                      sweeps=False)
+    traffic_attn = check_traffic_attention(torch, gen, traffic_F, cfg,
+                                           TRAFFIC_ECFG.page_size, flush, fails)
+    rows[0]["traffic_P4"] = traffic_attn
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], traffic_attn["max_abs_err"])
+    rows[0]["max_abs_err_bf16"] = max(rows[0]["max_abs_err_bf16"],
+                                      traffic_attn["max_abs_err_bf16"])
     log(f"[kernels] page_gather/page_scatter: {copy_checks} exact checks")
     rows.append(check_router_topk(torch, gen, flush, fails))
     rows += check_moe_route(torch, gen, moe_cfg, flush, fails)
@@ -1255,7 +1370,14 @@ def main() -> None:
     smoke_lifecycle(torch, "tinyllama-1.1b", qos=True)
     del os.environ["TIERSAN_LEVEL"], os.environ["TIERSAN_PLAN_CHECK"]
 
-    # ---------------- phase 4: the copies at the serve runs' flushes --- #
+    # ---------------- phase 4: traffic -------------------------------- #
+    traffic_launches, flush_pairs["tinyllama-1.1b/traffic"] = traffic_phase(torch, cfg, smi)
+    launches_by_path.update(traffic_launches)
+
+    # ---------------- phase 5: the expert tier ------------------------ #
+    expert_tier_phase(torch, moe_full, smi)
+
+    # ---------------- phase 6: the copies at the serve runs' flushes --- #
     flush = torch.ones(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
     copy_times = {}
     for name in frames:
@@ -1263,6 +1385,10 @@ def main() -> None:
         copy_times[name] = time_page_migrate(torch, gen, F, frames[name], med, flush)
         log(f"[kernels] copies at {name}'s median flush of {med} pairs: "
             f"{json.dumps(copy_times[name])}")
+    med = median_pairs(flush_pairs["tinyllama-1.1b/traffic"])
+    traffic_copies = time_page_migrate(torch, gen, traffic_F, traffic_frame, med, flush)
+    log(f"[kernels] copies at the traffic runs' median flush of {med} pairs: "
+        f"{json.dumps(traffic_copies)}")
     del flush
     for kname, line in (("page_gather", "src/repro/kernels/page_migrate.py:47"),
                         ("page_scatter", "src/repro/kernels/page_migrate.py:79")):
@@ -1287,6 +1413,10 @@ def main() -> None:
                 gather_then_scatter_ms=copy_times[name]["flush"]["gather_then_scatter_ms"],
                 one_store_64_live=copy_times[name]["one_store_64_live"][kname])
                 for name in FAMILIES},
+            "traffic_P4": dict(
+                traffic_copies["flush"][kname],
+                gather_then_scatter_ms=traffic_copies["flush"]["gather_then_scatter_ms"],
+                one_store_64_live=traffic_copies["one_store_64_live"][kname]),
         })
     for r in rows:
         log(f"[kernels] {r['name']}: max_abs_err {r['max_abs_err']} "
@@ -1311,7 +1441,6 @@ def serve_phase(torch, name, cfg, ecfg):
     just before and read just after; check the counts, tiering, tokens
     and the pool's invariants.  Frees the weights before it returns."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.page_migrate import MAX_PAIRS
     from repro_torch.launch.serve import check_fits, profile_decode, serve
     from repro_torch.models.model import init_params, param_bytes
 
@@ -1348,20 +1477,8 @@ def serve_phase(torch, name, cfg, ecfg):
     # an MoE layer routes once a forward: one launch each of the route,
     # the dispatch and the combine; the unfused router_topk is off the path
     routed = L * (steps + requests) if moe else 0
-    expected = {"paged_attention": L * steps, "flash_attention": L * requests,
-                "router_topk": 0, "moe_route": routed, "moe_dispatch": routed,
-                "moe_combine": routed}
-    for kname, n in expected.items():
-        if launches[kname] != n:
-            fail(f"{name}: {kname} launched {launches[kname]} times, expected {n}")
-    # the copies: one gather and one scatter a flush (a launch per
-    # MAX_PAIRS pairs), and the cache's one-frame prewarm
     kv = res["engine"].kv
-    copies = expected_copies(kv, MAX_PAIRS)
-    for kname in ("page_gather", "page_scatter"):
-        if launches[kname] != copies:
-            fail(f"{name}: {kname} launched {launches[kname]} times, expected "
-                 f"{copies} ({kv.flushes} flushes + the prewarm)")
+    check_launches(name, launches, kv, L, steps, requests, routed)
     placement = {k: stats[k] for k in PLACEMENT}
     if placement != PLACEMENT:
         fail(f"{name}: placement {placement}, expected {PLACEMENT}")
@@ -1391,6 +1508,27 @@ def expected_copies(kv, max_pairs):
     if not kv.cfg.staged_migration:
         return 0
     return 1 + sum(-(-n // max_pairs) * k for n, k in kv.flush_pairs.items())
+
+
+def check_launches(name, launches, kv, L, decodes, prefills, routed=0):
+    """A run's exact launch counts: ``paged_attention`` once a layer a
+    decoding step on the batched plane (none on the reference plane),
+    ``flash_attention`` once a layer a prefill (restarts after an
+    eviction included), the MoE route, dispatch and combine ``routed``
+    times each (the unfused ``router_topk`` is on no path), and the
+    copies ``expected_copies``."""
+    from repro_torch.kernels.page_migrate import MAX_PAIRS
+
+    copies = expected_copies(kv, MAX_PAIRS)
+    expected = {"paged_attention": L * decodes if kv.cfg.staged_migration else 0,
+                "flash_attention": L * prefills, "router_topk": 0, "moe_route": routed,
+                "moe_dispatch": routed, "moe_combine": routed,
+                "page_gather": copies, "page_scatter": copies}
+    for kname, n in expected.items():
+        if launches[kname] != n:
+            fail(f"{name}: {kname} launched {launches[kname]} times, expected {n} "
+                 f"({decodes} decoding steps, {prefills} prefills, {kv.flushes} "
+                 f"flushes + the prewarm)")
 
 
 def policy_phase(torch, cfg, ecfg, params, policy):
@@ -1427,13 +1565,8 @@ def policy_phase(torch, cfg, ecfg, params, policy):
         f"{stats['demoted']} promoted {stats['promoted']} migrated_bytes "
         f"{stats['migrated_bytes']} {res['ms_per_step']:.3f} ms/step")
     log(f"[policy] summary {json.dumps(summary)}")
+    check_launches(name, launches, kv, L, steps, requests)
     copies = expected_copies(kv, MAX_PAIRS)
-    expected = {"paged_attention": L * steps, "flash_attention": L * requests,
-                "router_topk": 0, "moe_route": 0, "moe_dispatch": 0, "moe_combine": 0,
-                "page_gather": copies, "page_scatter": copies}
-    for kname, n in expected.items():
-        if launches[kname] != n:
-            fail(f"{name}: {kname} launched {launches[kname]} times, expected {n}")
     toks = [t for out in res["tokens"].values() for t in out]
     if len(toks) != requests * max_new or not all(0 <= t < cfg.vocab for t in toks):
         fail(f"{name}: malformed tokens")
@@ -1461,7 +1594,6 @@ def reference_phase(torch, cfg, ecfg, params, name="tinyllama-1.1b", requests=2,
     ``NEAR_TIE`` (a near-tie, logged as such).  Both planes must place
     pages alike, and as ``placement`` where one is given."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.page_migrate import MAX_PAIRS
     from repro_torch.launch.serve import serve
     from repro_torch.serving import ServingEngine
 
@@ -1494,15 +1626,8 @@ def reference_phase(torch, cfg, ecfg, params, name="tinyllama-1.1b", requests=2,
         if kv.cfg.staged_migration != staged or (not staged and kv.flushes):
             fail(f"{name} reference phase: {plane} plane staged {kv.cfg.staged_migration}, "
                  f"{kv.flushes} flushes")
-        copies = expected_copies(kv, MAX_PAIRS)
-        expected = {"paged_attention": L * steps if staged else 0,
-                    "flash_attention": L * requests, "router_topk": 0, "moe_route": 0,
-                    "moe_dispatch": 0, "moe_combine": 0,
-                    "page_gather": copies, "page_scatter": copies}
-        for kname, n in expected.items():
-            if launches[kname] != n:
-                fail(f"{name} reference phase, {plane} plane: {kname} launched "
-                     f"{launches[kname]} times, expected {n}")
+        check_launches(f"{name} reference phase, {plane} plane", launches, kv, L,
+                       steps, requests)
         runs[plane] = {"tokens": res["tokens"], "ms_per_step": res["ms_per_step"],
                        "steps": steps, "stats": res["stats"], "launches": launches}
         res["engine"].kv.pool.check_invariants()
@@ -1606,6 +1731,429 @@ def smoke_lifecycle(torch, arch, qos=False, **overrides):
         f"TierSan checks {checks['cuda'][0]}, flushes checked {checks['cuda'][1]}"
         + (f", batch shed at steps {card['shed_at_steps']}, qos "
            f"{json.dumps(card['stats'][-1]['qos'])}" if qos else ""))
+
+
+def traffic_run(torch, sched, timings=None):
+    """Drive ``sched`` to its end.  With ``timings``, each generate and
+    each prefill is timed between two synchronises (wall ms of a
+    generate by padded batch ``Bp``); returns the generate steps that
+    decoded at least one lane and the prefills that ran."""
+    from repro_torch.serving.kv_cache import bucket
+
+    slots = sched.slots
+    sync = torch.cuda.synchronize if sched.engine.device.type == "cuda" else (lambda: None)
+    plain_generate, plain_prefill = slots.generate, slots.prefill
+    counts = {"decodes": 0, "prefills": 0}
+
+    def generate():
+        B = sum(1 for s in slots.occupied() if not s.paused)
+        sync()
+        t0 = time.perf_counter()
+        out = plain_generate()
+        sync()
+        if B:
+            counts["decodes"] += 1
+            if timings is not None:
+                timings["generate_ms"].setdefault(bucket(B), []).append(
+                    1e3 * (time.perf_counter() - t0))
+        return out
+
+    def prefill(*args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        rid = plain_prefill(*args, **kwargs)  # an AdmissionError runs no kernel
+        sync()
+        counts["prefills"] += 1
+        if timings is not None:
+            timings["prefill_ms"].append(1e3 * (time.perf_counter() - t0))
+        return rid
+
+    slots.generate, slots.prefill = generate, prefill
+    try:
+        res = sched.run()
+    finally:
+        slots.generate, slots.prefill = plain_generate, plain_prefill
+    return res, counts
+
+
+def traffic_phase(torch, cfg, smi):
+    """The continuous-batching front end (``repro_torch.traffic``) over
+    full-width ``cfg`` on the card, with the traffic benchmark's engine
+    (``topk_pages=None`` but in the two-plane run):
+
+    1. Poisson and MMPP traces of 56 requests × relief ``shed`` and
+       ``control``: each ``summary()``, and the local fraction, demoted
+       and promoted of ``stats()``, equal to the smoke config's run of
+       the same trace on the CPU (exact attention makes them depend on
+       no weight); launch counts exact (``check_launches``).
+    2. The Poisson/``control`` trace with top-4 pages on the batched and
+       on the reference plane: ``completed`` tokens equal (a difference
+       fails with the reference decode's top-2 logit gap at each first
+       difference, as its diagnosis).
+    3. The card's own wall times (synchronised generate by ``Bp``,
+       prefill, run) and a ``torch.profiler`` trace of 8 generate steps
+       of the MMPP/``control`` run, printed as ``measured``; the
+       scheduler's TTFT and TPOT as ``modeled_ms``.
+
+    Returns ``(launches_by_path, flush_pairs)``."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.benchmarks import traffic_bench as tb
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import Tier
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import trace_kernel_launches
+    from repro_torch.models.model import init_params, tree_map
+
+    name, L = "tinyllama-1.1b", cfg.n_layers
+    scfg = get_smoke_config(name)
+    ecfg = dataclasses.replace(tb.ENGINE_CONFIG, topk_pages=None)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    sparams = init_params(scfg, torch.Generator().manual_seed(0), device="cpu")
+    vocab = min(cfg.vocab, scfg.vocab)  # one trace whose tokens both configs take
+    placement_keys = ("local_fraction", "demoted", "promoted")
+    launches_by_path, flush_pairs = {}, Counter()
+    timings = {"generate_ms": {}, "prefill_ms": []}
+    run_s, modeled = {}, {}
+    for kind in tb.KINDS:
+        trace = tb.trace(kind, vocab)
+        for relief in ("shed", "control"):
+            key = f"{kind}_{relief}"
+            host = tb.scheduler(scfg, sparams, trace, relief, ecfg, device="cpu").run()
+            ops.reset_launch_counts()  # the cache's prewarm copy counts
+            sched = tb.scheduler(cfg, params, trace, relief, ecfg, device="cuda")
+            t0 = time.perf_counter()
+            res, counts = traffic_run(torch, sched, timings)
+            run_s[key] = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            kv = sched.engine.kv
+            check_launches(f"traffic {key}", launches, kv, L, counts["decodes"],
+                           counts["prefills"])
+            launches_by_path[f"{name}/traffic/{key}"] = launches
+            flush_pairs.update(kv.flush_pairs)
+            summary = res.summary()
+            if summary != host.summary():
+                fail(f"traffic {key}: the card's summary {json.dumps(summary)} != the "
+                     f"CPU smoke run's {json.dumps(host.summary())}")
+            got = {k: res.engine_stats[k] for k in placement_keys}
+            want = {k: host.engine_stats[k] for k in placement_keys}
+            if got != want:
+                fail(f"traffic {key}: stats {got} != the CPU smoke run's {want}")
+            if counts["prefills"] != sum(r.attempts for r in sched.records.values()):
+                fail(f"traffic {key}: {counts['prefills']} prefills for "
+                     f"{sum(r.attempts for r in sched.records.values())} admissions")
+            kv.pool.check_invariants()
+            modeled[key] = {c: {k: v for k, v in m.items() if k.startswith(("ttft", "tpot"))}
+                            for c, m in summary["per_class"].items()}
+            log(f"[traffic] {key} summary {json.dumps(summary)}")
+            log(f"[traffic] {key}: {summary['steps']} steps ({counts['decodes']} that "
+                f"decoded), {counts['prefills']} prefills, stats {json.dumps(got)}, "
+                f"{kv.flushes} flushes, launches "
+                f"{json.dumps({k: n for k, n in launches.items() if n})}; equal to the "
+                f"CPU smoke run")
+            del sched, res, kv
+
+    # both planes at the benchmark's own top-4 pages on one trace
+    trace = tb.trace("poisson", vocab)
+    completed, gaps = {}, {}
+    for plane in ("batched", "reference"):
+        ops.reset_launch_counts()
+        sched = tb.scheduler(cfg, params, trace, "control",
+                             dataclasses.replace(tb.ENGINE_CONFIG, data_plane=plane),
+                             device="cuda")
+        eng = sched.engine
+        if plane == "reference":  # each decode's top-2 logit gap, in decode order
+            plain_decode, plain_logits, at = eng._decode_one, eng._logits, {}
+
+            def decode_one(seq, eng=eng, plain_decode=plain_decode, at=at):
+                req = eng.requests[seq.rid]
+                at["key"] = (tuple(req.prompt), len(req.out))
+                return plain_decode(seq)
+
+            def logits(x, plain_logits=plain_logits, at=at):
+                out = plain_logits(x)
+                top2 = torch.topk(out[0, -1].float(), 2).values
+                gaps[at["key"]] = (len(gaps), float(top2[0] - top2[1]))
+                return out
+
+            eng._decode_one, eng._logits = decode_one, logits
+        t0 = time.perf_counter()
+        res, counts = traffic_run(torch, sched)
+        run_s[f"poisson_control_topk4_{plane}"] = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check_launches(f"traffic two planes, {plane}", launches, eng.kv, L,
+                       counts["decodes"], counts["prefills"])
+        launches_by_path[f"{name}/traffic/poisson_control-topk4-{plane}-plane"] = launches
+        completed[plane] = sched.completed
+        log(f"[traffic] poisson_control top-4 pages, {plane} plane: summary "
+            f"{json.dumps(res.summary())}")
+        del sched, res, eng
+    ref, bat = completed["reference"], completed["batched"]
+    if sorted(ref) != sorted(bat):
+        fail(f"traffic two planes: requests completed differ: {sorted(set(ref) ^ set(bat))}")
+    diffs = []  # ((reference decode order, top-2 gap), request, token) of each first difference
+    for i in sorted(ref):
+        a, b = ref[i], bat[i]
+        if a != b:
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            diffs.append((gaps.get((trace[i].prompt, j), (float("inf"), float("inf"))), i, j))
+    if diffs:  # the top-2 gaps are the diagnosis; a near-tie is a fault all the same
+        diffs.sort()
+        fail(f"traffic two planes: completed tokens of {len(diffs)} requests differ; "
+             "(reference decode order, top-2 logit gap there), request, token of each "
+             f"first difference: {diffs[:8]}")
+    log(f"[traffic] two planes, top-4 pages: {sum(len(t) for t in ref.values())} tokens of "
+        f"{len(ref)} requests equal")
+
+    # TierSan over one scheduler lifecycle at smoke size, cuda against cpu
+    os.environ["TIERSAN_LEVEL"] = "full"
+    os.environ["TIERSAN_PLAN_CHECK"] = "1"
+    try:
+        ends = []  # the card's run, then the CPU's
+        strace = tb.trace("bursty", scfg.vocab)
+        for dev in ("cuda", "cpu"):
+            p = sparams if dev == "cpu" else tree_map(lambda t: t.to("cuda"), sparams)
+            sched = tb.scheduler(scfg, p, strace, "control", device=dev)
+            res = sched.run()
+            eng = sched.engine
+            pool = eng.kv.pool
+            free = (pool.free_frames(Tier.FAST), pool.free_frames(Tier.SLOW))
+            if eng.seqs or free != (ecfg.num_fast, ecfg.num_slow):
+                fail(f"traffic TierSan lifecycle on {dev}: {len(eng.seqs)} sequences and "
+                     f"free frames {free} at the end")
+            if pool.tiersan is None or pool.tiersan.level != "full" or not eng.kv.plan_check:
+                fail(f"traffic TierSan lifecycle on {dev} ran without TierSan")
+            ends.append((res.summary(), sched.completed, res.engine_stats,
+                         pool.tiersan.checks, eng.kv.flushes))
+        if ends[0] != ends[1]:
+            fail("traffic TierSan lifecycle: cuda != cpu")
+        log(f"[traffic] MMPP/control smoke lifecycle under TierSan cuda == cpu: "
+            f"{ends[0][0]['steps']} steps, TierSan checks {ends[0][3]}, "
+            f"flushes checked {ends[0][4]}, every frame free at the end")
+    finally:
+        del os.environ["TIERSAN_LEVEL"], os.environ["TIERSAN_PLAN_CHECK"]
+
+    # 8 generate steps of the MMPP/control run under the profiler
+    sched = tb.scheduler(cfg, params, tb.trace("bursty", vocab), "control", ecfg,
+                         device="cuda")
+    sched.run(max_steps=40)
+    out_dir = ROOT / "build" / "profile" / "traffic"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.run(max_steps=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in ka if e.device_type.name == "CUDA")
+    prof.export_chrome_trace(str(out_dir / "trace.json"))
+    steps = sched.steps - 40
+    top = sorted((e for e in ka if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:8]
+    measured = {
+        "card": smi,
+        "generate_ms_by_Bp": {
+            bp: {"calls": len(v), "mean": sum(v) / len(v), "median": sorted(v)[len(v) // 2],
+                 "min": min(v), "max": max(v)}
+            for bp, v in sorted(timings["generate_ms"].items())},
+        "prefill_ms": {"calls": len(timings["prefill_ms"]),
+                       "mean": sum(timings["prefill_ms"]) / len(timings["prefill_ms"]),
+                       "median": sorted(timings["prefill_ms"])[len(timings["prefill_ms"]) // 2]},
+        "run_s": run_s,
+        "profile_8_steps": {
+            "traced_generate_steps": steps,
+            "wall_ms_per_step": 1e3 * wall / steps,
+            "device_busy_ms_per_step": device_us / 1e3 / steps,
+            "device_idle_share": 1.0 - device_us / 1e6 / wall,
+            "device_launches_per_step": trace_kernel_launches(out_dir / "trace.json") / steps,
+            "top_device_ops_ms_per_step": {e.key: e.self_device_time_total / 1e3 / steps
+                                           for e in top}},
+    }
+    log(f"[traffic] measured (wall times between synchronises; the 56-request runs of "
+        f"step 1) {json.dumps(measured)}")
+    log(f"[traffic] modeled_ms (the scheduler's latency clock, not the card's) "
+        f"{json.dumps(modeled)}")
+    del sched, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches_by_path, flush_pairs
+
+
+# the expert tier's counts on the benchmark's phi3.5 stream (8 layers, 16
+# experts, top-2, 51 fast, 120 steps): (hbm fraction, modeled cost,
+# promoted, demoted), as the JAX manager gives them
+EXPERT_COUNTS = {"linux": (0.0, 15360.0, 0, 0), "autotiering": (0.804, 4559.0, 207, 158),
+                 "tpp": (0.765, 5084.0, 205, 157)}
+EXPERT_STEPS = 120
+HOST_LINK_GBPS = 64.0  # PCIe Gen5 x16, nominal, each direction
+
+
+def expert_tier_phase(torch, moe_cfg, smi):
+    """The expert tier (``repro_torch.serving.expert_tier``) at phi3.5-moe's
+    published expert widths: a device bank of 51 experts in HBM and a
+    pinned host bank of every expert, on the stream of
+    ``repro_torch.benchmarks.expert_tiering`` for each policy.  The counts
+    must equal the CPU's at tiny widths and, unless host memory cut L,
+    ``EXPERT_COUNTS``; after each policy every expert, wherever it lives,
+    equals its generator's output bit for bit.  Prints the host link's measured rates and the lookup
+    times."""
+    import numpy as np
+
+    from repro_torch.benchmarks import expert_tiering as eb
+    from repro_torch.core import Tier
+
+    _, L, E, K, frac = eb.CASES[0]
+    mcfg = moe_cfg.all_specs()[0].moe
+    d, f = moe_cfg.d_model, mcfg.d_ff_expert
+    shapes = {"wi_gate": (d, f), "wi_up": (d, f), "wo": (f, d)}
+    per_expert = 4 * sum(a * b for a, b in shapes.values())
+    mem_avail = meminfo_bytes("MemAvailable")
+    full_L = L
+    while L > 1 and mem_avail < 1.5 * L * E * per_expert:
+        L -= 1
+    if L != full_L:
+        log(f"[expert_tier] reduced: L cut from {full_L} to {L}: MemAvailable "
+            f"{mem_avail} B < 1.5 x the {full_L * E * per_expert} B slow bank; "
+            f"EXPERT_COUNTS (L={full_L}) not compared")
+    # counts at this L and tiny widths on the CPU (they depend on no weight)
+    host = {}
+    for policy in eb.POLICIES:
+        tiny = {k: np.zeros((L, E, 2, 3), np.float32) for k in shapes}
+        mgr = eb.manager(L, E, frac, policy, tiny, device="cpu")
+        eb.drive(mgr, K, EXPERT_STEPS)
+        host[policy] = expert_counts(mgr)
+    compared = "the CPU's" + (" and EXPERT_COUNTS" if L == full_L else "")
+
+    def expert(le):
+        """Expert ``le``'s weights, made on the card from its own generator."""
+        g = torch.Generator(device="cuda").manual_seed(1000 + le)
+        return {k: torch.randn(s, generator=g, device="cuda") for k, s in shapes.items()}
+
+    # each manager copies its weights into a pinned bank of its own: given
+    # zeros as stride-0 views, it pins and zeroes the bank, and the experts
+    # are then written into its rows from the card (no second 40 GB copy)
+    zeros = {k: torch.zeros(s).expand((L, E) + s) for k, s in shapes.items()}
+    out = {"card": smi, "L": L, "E": E, "top_k": K, "expert_bytes": per_expert,
+           "host_link_nominal_GBps": HOST_LINK_GBPS}
+
+    def run_policy(policy):
+        """One policy's run; returns a weak reference to its slow bank."""
+        t0 = time.perf_counter()
+        mgr = eb.manager(L, E, frac, policy, zeros, device="cuda")
+        build_s = time.perf_counter() - t0
+        mem_after = meminfo_bytes("MemAvailable")
+        if not all(b.is_pinned() for b in mgr.slow_bank.values()):
+            fail(f"expert tier {policy}: the slow bank is not in pinned memory")
+        t0 = time.perf_counter()
+        for le in range(L * E):
+            for k, w in expert(le).items():
+                mgr.slow_bank[k][le].copy_(w)
+        fill_s = time.perf_counter() - t0
+        log(f"[expert_tier] {policy} banks: {len(shapes)} pinned host tensors of "
+            f"(L·E={L * E}) experts at d={d}, d_ff_expert={f}: {L * E * per_expert} B "
+            f"({per_expert} B an expert); built (pinned and zeroed) in {build_s:.3f} s "
+            f"(MemAvailable {mem_avail} -> {mem_after} B), filled from the card in "
+            f"{fill_s:.3f} s; HBM bank {mgr.cfg.fast_capacity} experts, "
+            f"{mgr.cfg.fast_capacity * per_expert} B")
+        moved = {Tier.FAST: [0, 0.0], Tier.SLOW: [0, 0.0]}  # by source tier
+        plain_migrate = mgr.pool.on_migrate
+
+        def timed_migrate(pid, src, src_frame, dst, dst_frame):
+            t0 = time.perf_counter()
+            plain_migrate(pid, src, src_frame, dst, dst_frame)
+            torch.cuda.synchronize()
+            moved[src][0] += per_expert
+            moved[src][1] += time.perf_counter() - t0
+
+        mgr.pool.on_migrate = timed_migrate
+        t0 = time.perf_counter()
+        eb.drive(mgr, K, EXPERT_STEPS)
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+        got = expert_counts(mgr)
+        rec = (round(got["fast_fraction"], 3), got["modeled_cost"],
+               got["vmstat"]["pgpromote_total"], got["vmstat"]["pgdemote_total"])
+        if got != host[policy] or (L == full_L and rec != EXPERT_COUNTS[policy]):
+            fail(f"expert tier {policy}: counts {got} differ from the CPU's "
+                 f"{host[policy]}, or {rec} from the recorded {EXPERT_COUNTS[policy]}")
+        # every expert where it lives, against its generator, bit for bit
+        wrong = []
+        for (l, e), pid in mgr.pid_of.items():
+            page = mgr.pool.pages[pid]
+            bank = mgr.fast_bank if page.tier == Tier.FAST else mgr.slow_bank
+            for k, w in expert(l * E + e).items():
+                if not torch.equal(bank[k][page.frame].to("cuda"), w):
+                    wrong.append((l, e, k))
+        if wrong:
+            fail(f"expert tier {policy}: payloads differ from their generators: {wrong[:8]}")
+        # lookups: the manager's call, then one read of the expert where it
+        # is (an HBM reduction) or a host gather (a copy over the link)
+        look = {}
+        for tier in (Tier.FAST, Tier.SLOW):
+            les = [le for le in range(L * E)
+                   if mgr.pool.pages[mgr.pid_of[(le // E, le % E)]].tier == tier][:4]
+            call_us, read_ms = [], []
+            for le in les:
+                t0 = time.perf_counter()
+                rows, _ = mgr.lookup(le // E, le % E)
+                call_us.append(1e6 * (time.perf_counter() - t0))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if tier == Tier.FAST:
+                    [torch.sum(v) for v in rows.values()]
+                else:
+                    [v.to("cuda") for v in rows.values()]
+                torch.cuda.synchronize()
+                read_ms.append(1e3 * (time.perf_counter() - t0))
+            if les:
+                look[tier.name.lower()] = {"lookups": len(les),
+                                           "lookup_call_us": sum(call_us) / len(les),
+                                           "read_once_ms": sum(read_ms) / len(les),
+                                           "read": "torch.sum of each weight on the card"
+                                           if tier == Tier.FAST else "copy to the card"}
+        out[policy] = {
+            "build_s": build_s, "fill_s": fill_s, "hbm_fraction": got["fast_fraction"],
+            "modeled_cost": got["modeled_cost"],
+            "promoted": rec[2], "demoted": rec[3], "drive_s": drive_s,
+            "promote_h2d": {"bytes": moved[Tier.SLOW][0], "s": moved[Tier.SLOW][1],
+                            "GBps": moved[Tier.SLOW][0] / moved[Tier.SLOW][1] / 1e9
+                            if moved[Tier.SLOW][1] else None},
+            "demote_d2h": {"bytes": moved[Tier.FAST][0], "s": moved[Tier.FAST][1],
+                           "GBps": moved[Tier.FAST][0] / moved[Tier.FAST][1] / 1e9
+                           if moved[Tier.FAST][1] else None},
+            "lookups": look,
+        }
+        log(f"[expert_tier] {policy}: counts {rec} equal to {compared}; every payload "
+            f"bit for bit; measured {json.dumps(out[policy])}")
+        return weakref.ref(next(iter(mgr.slow_bank.values())))
+
+    for policy in eb.POLICIES:
+        bank = run_policy(policy)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bank() is not None:  # the next policy pins a bank of its own
+            fail(f"expert tier {policy}: the slow bank outlived its manager")
+    log(f"[expert_tier] measured {json.dumps(out)}")
+    gc.collect()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()  # the pinned blocks go back to the system
+    return out
+
+
+def expert_counts(mgr):
+    return {"hbm_hits": mgr.hbm_hits, "host_hits": mgr.host_hits,
+            "fast_fraction": mgr.fast_fraction(), "modeled_cost": mgr.modeled_cost(),
+            "placement": mgr.placement().tolist(), "vmstat": mgr.pool.vmstat.as_dict()}
+
+
+def meminfo_bytes(key: str) -> int:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith(key + ":"):
+            return int(line.split()[1]) * 1024
+    raise KeyError(key)
 
 
 def _leaves(tree):
