@@ -1,9 +1,8 @@
 """TierSan — leveled runtime invariant sanitizer for both pool engines.
 
 Generalizes ``VectorPagePool.check_invariants`` into a checker that
-attaches to *either* engine (:class:`~repro_torch.core.page_pool.PagePool`,
-or the JAX package's ``repro.core.engine.VectorPagePool``, duck-typed)
-behind a debug flag and runs
+attaches to *either* engine (:class:`~repro_torch.core.page_pool.PagePool` or
+:class:`~repro_torch.core.engine.VectorPagePool`) behind a debug flag and runs
 at every interval close (``pool.end_interval``), CONFIG_DEBUG_VM-style:
 
 * ``conservation`` — cheap laws safe to leave on in long runs:
@@ -239,8 +238,7 @@ class TierSan:
 def check_fleet_conservation(coordinator) -> None:
     """TierSan's fleet law: one global budget, conserved across shards.
 
-    Given a fleet coordinator (duck-typed: the JAX package's
-    ``repro.fleet.coordinator.FleetCoordinator``), verify
+    Given a :class:`~repro_torch.fleet.coordinator.FleetCoordinator`, verify
     the cross-shard budget invariants the push-down path must preserve:
 
     * ``sum(shard budgets) == global_budget`` exactly — the coordinator

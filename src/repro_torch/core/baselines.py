@@ -4,7 +4,7 @@ Every baseline implements the :class:`~repro_torch.core.policy.PlacementPolicy`
 protocol and drives the *same* pool and data plane as TPP — only the
 placement logic differs, mirroring how the paper swaps kernels on
 identical hardware.  All policies run unchanged against the reference
-``PagePool`` (and, in the JAX package, the vectorized ``VectorPagePool``).
+``PagePool`` and the vectorized ``VectorPagePool``.
 
 A copy of ``repro.core.baselines`` with the same behaviour; the port
 keeps its own so that it imports nothing of ``repro``.

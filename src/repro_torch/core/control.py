@@ -6,7 +6,7 @@ steering), *what to demote* (§5.2 victim selection), and *what to
 promote* (§5.3 admission).  :class:`TieringControl` makes those three
 decision points an explicit, typed API that both page-pool engines
 (:class:`~repro_torch.core.page_pool.PagePool` and
-:class:`repro.core.engine.VectorPagePool` in the JAX package) dispatch through uniformly,
+:class:`~repro_torch.core.engine.VectorPagePool`) dispatch through uniformly,
 replacing the former nullable ``pool.qos`` attribute and its scattered
 ``if self.qos is not None`` checks.
 

@@ -15,8 +15,7 @@ Policies drive a pool through the *accessor surface* described by
 :class:`PlacementPool` instead of reaching into ``pool.pages`` — that is
 what lets the same policy code run unchanged against both the reference
 ``PagePool`` and the struct-of-arrays ``VectorPagePool``
-(``repro.core.engine`` in the JAX package), with bit-identical ``VmStat``
-trajectories.
+(``repro_torch.core.engine``), with bit-identical ``VmStat`` trajectories.
 """
 
 from __future__ import annotations
@@ -65,7 +64,7 @@ class PlacementPool(Protocol):
 
     Implemented by both :class:`~repro_torch.core.page_pool.PagePool`
     (reference, dict-of-``Page``) and
-    ``repro.core.engine.VectorPagePool`` of the JAX package (struct-of-arrays).
+    :class:`~repro_torch.core.engine.VectorPagePool` (struct-of-arrays).
     Only the subset policies use is listed; see DESIGN.md §3.
 
     Every pool also carries a ``control``

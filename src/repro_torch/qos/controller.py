@@ -31,9 +31,8 @@ abstract weights.
 Everything else — allocation steering, victim ordering, batched token
 admission, the serving shed signal — is inherited from the arbiter, so
 the controller is a drop-in :class:`~repro_torch.core.control.TieringControl`
-for either pool engine, the JAX package's simulator
-(``TieredSimulator(qos=SlowdownControllerConfig(...))``) and the serving
-engine.  Decisions
+for either pool engine, the simulator (``TieredSimulator(qos=
+SlowdownControllerConfig(...))``) and the serving engine.  Decisions
 are pure functions of counters that are bit-identical across engines,
 so placement under the controller is too (tests/test_qos.py).
 """
@@ -73,7 +72,7 @@ def proportional_share_update(
     floored at ``floor`` and renormalized again.  This is the control
     law of :class:`SlowdownController` (per-tenant shares of one host's
     fast tier) and of the fleet coordinator
-    (the JAX package's ``repro.fleet.coordinator.FleetCoordinator``, per-shard-pool
+    (:class:`~repro_torch.fleet.coordinator.FleetCoordinator`, per-shard-pool
     shares of the global fast-tier budget) — one law, two altitudes.
     """
     err = measured / targets - 1.0

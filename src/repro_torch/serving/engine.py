@@ -35,10 +35,9 @@ On the batched plane all active sequences decode in one step:
 The policy (``tpp`` or a baseline of ``repro_torch.core.baselines``)
 receives each step's slow- and fast-tier page hits and migrates
 payloads through the cache's migration hook.  ``EngineConfig.qos`` arms
-the multi-tenant control plane of ``repro_torch.qos`` on the KV pool.
-
-Not yet ported: ``as_shard_pool`` (it raises ``NotImplementedError``;
-ROADMAP Queue 1).
+the multi-tenant control plane of ``repro_torch.qos`` on the KV pool,
+and :meth:`ServingEngine.as_shard_pool` registers the KV pool as a shard
+of a ``repro_torch.fleet`` coordinator.
 """
 
 from __future__ import annotations
@@ -759,10 +758,26 @@ class ServingEngine:
         return torch.einsum("bhd,bmlhd->bm", qm.float(), means)
 
     # ---------------------------------------------------------------- #
-    def as_shard_pool(self, *args, **kwargs):
-        raise NotImplementedError(
-            "as_shard_pool is not ported yet: ROADMAP Queue 1 item "
-            "'traffic, expert tiering, fleet and training'"
+    def as_shard_pool(self, host: int = 0, name: str = "kv", slo=None,
+                      traffic=None):
+        """Register this engine's KV pool as a fleet shard.
+
+        The returned :class:`~repro_torch.fleet.shard.ShardPool` lets a
+        :class:`~repro_torch.fleet.coordinator.FleetCoordinator` budget
+        the KV cache's fast tier alongside other pools on the same host
+        — push-downs land through ``pool.set_fast_budget``, telemetry
+        windows come from the engine's attached control ledger (a
+        control-free engine reports on-target).  ``traffic`` optionally
+        attaches a :class:`~repro_torch.traffic.scheduler.TrafficScheduler`
+        over this engine so ``HostShard.step`` drives the shard from a
+        request trace.  Import is lazy so serving stays usable without
+        the fleet package.
+        """
+        from repro_torch.fleet.shard import ShardPool
+
+        return ShardPool(
+            host=host, name=name, pool=self.kv.pool,
+            control=self.control, slo=slo, traffic=traffic,
         )
 
     def stats(self) -> Dict[str, Any]:

@@ -24,9 +24,8 @@ A fast-tier miss (token routed to a host-resident expert) is served by
 a host gather — modeled cost ``slow_cost``× the HBM access — and
 counted, giving the Table-1-style comparison for expert placement
 policies in ``repro_torch/benchmarks/expert_tiering.py``.
-
-Not yet ported: ``as_shard_pool`` (it raises ``NotImplementedError``;
-ROADMAP Queue 1, the fleet item).
+:meth:`ExpertTierManager.as_shard_pool` registers the expert pool as a
+shard of a ``repro_torch.fleet`` coordinator.
 """
 
 from __future__ import annotations
@@ -190,8 +189,16 @@ class ExpertTierManager:
             out[l, e] = self.pool.pages[pid].tier == Tier.FAST
         return out
 
-    def as_shard_pool(self, *args, **kwargs):
-        raise NotImplementedError(
-            "as_shard_pool is not ported yet: ROADMAP Queue 1 item "
-            "'traffic, expert tiering, fleet and training' (fleet/)"
+    def as_shard_pool(self, host: int = 0, name: str = "experts", slo=None):
+        """Register the expert pool as a fleet shard (see
+        :meth:`repro_torch.serving.engine.ServingEngine.as_shard_pool`);
+        the shard's modeled slow cost is the expert bank's host-gather
+        multiple.  Import is lazy so expert tiering stays usable
+        without the fleet package."""
+        from repro_torch.fleet.shard import ShardPool
+
+        return ShardPool(
+            host=host, name=name, pool=self.pool,
+            control=self._control, slo=slo,
+            slow_cost=self.cfg.slow_cost,
         )

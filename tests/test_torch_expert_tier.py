@@ -154,13 +154,6 @@ def test_cuda_manager_needs_cuda(monkeypatch):
                           weights(2, 4))
 
 
-def test_as_shard_pool_is_not_ported():
-    mgr = ExpertTierManager(ExpertTierConfig(n_layers=2, n_experts=4, fast_capacity=4),
-                            weights(2, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="fleet"):
-        mgr.as_shard_pool()
-
-
 # --------------------------------------------------------------------- #
 # tests/test_serving.py's TestExpertTiering, on the port
 # --------------------------------------------------------------------- #
