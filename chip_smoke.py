@@ -142,6 +142,29 @@ into ``build/``) and runs these phases:
    calls (``index_select`` / ``index_copy_`` once per store) and the
    bytes bound; and one gather then scatter, as a flush runs them.
 
+Then (``[train]``) the training path: ``moe_combine_bwd`` against its
+plain version (``dye`` bit for bit, ``dvals`` within ``DVALS_REL``) at
+phi3.5-moe's training shape (T=2048, C=320) and decode shape with tokens
+dropped, deepseek-v2-lite's router shape and hand-made edges (empty
+slots, a token whose gates all drop, d=70), with the dispatch's backward
+(``moe_combine`` with unit gates), each timed beside its plain version
+and bound, and the route's backward timed; one phi3.5-moe layer at
+published widths, every gradient through the kernels' autograd within
+``TRAIN_GRAD_REL`` of the plain versions' and of plain autograd, at
+T=2048 (dropping) and decode; cuda == cpu for three ``make_train_step``
+steps (plain, ``accum=2``, ``remat=True``) of all seven archs' smoke
+configs, within ``TRAIN_SMOKE_TOL``, MoE launches exact (remat runs each
+MoE layer's forward twice); full-width tinyllama-1.1b through
+``train_loop`` at B=8, S=256, 8 steps with a checkpoint every 4 into
+``build/train_ckpt``, the loss falling, a relaunch from step 4 equal to
+the uninterrupted run bit for bit (deterministic algorithms), the same
+run with a third of the optimizer state's bytes kept on the card and the
+rest in pinned host memory, 4 steps bit for bit equal, the host link's
+rates, and 2 traced steps; full-width phi3.5-moe cut to 2 of 32 layers,
+4 steps at B=8, S=256 with exact launches (route, dispatch and combine
+once an MoE layer a forward, the combine once more and
+``moe_combine_bwd`` once an MoE layer a backward) and 2 traced steps.
+
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the result lines; there is no CPU fallback.
@@ -153,6 +176,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -801,6 +825,9 @@ def check_empty_inputs(torch, fails):
     ops.moe_combine(torch.empty((16, 1, 64), device=dev),
                     torch.empty((0,), dtype=torch.int32, device=dev),
                     torch.empty((0, 2), device=dev), impl="kernel")
+    ops.moe_combine_bwd(torch.empty((0, 64), device=dev), torch.empty((16, 1, 64), device=dev),
+                        torch.empty((0,), dtype=torch.int32, device=dev),
+                        torch.empty((0, 2), device=dev), impl="kernel")
     ops.paged_attention(torch.empty((0, 4, 64), device=dev),
                         torch.empty((3, 2, 16, 64), device=dev),
                         torch.empty((3, 2, 16, 64), device=dev),
@@ -1263,6 +1290,9 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
 
 # --------------------------------------------------------------------- #
 def main() -> None:
+    # cuBLAS is deterministic with this workspace (read when cuBLAS starts);
+    # the [train] phase's relaunch is held to its first run bit for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1447,6 +1477,9 @@ def main() -> None:
                 gather_then_scatter_ms=traffic_copies["flush"]["gather_then_scatter_ms"],
                 one_store_64_live=traffic_copies["one_store_64_live"][kname]),
         })
+    # ---------------- [train]: the training path ---------------------- #
+    launches_by_path.update(train_phase(torch, moe_full, smi, rows))
+
     for r in rows:
         log(f"[kernels] {r['name']}: max_abs_err {r['max_abs_err']} "
             f"(tol {r['tolerance']}) kernel {r['kernel_ms']:.4f} ms plain "
@@ -1551,7 +1584,7 @@ def expected_launches(kv, L, decodes, prefills, routed=0):
     copies = expected_copies(kv, MAX_PAIRS)
     return {"paged_attention": L * decodes if kv.cfg.staged_migration else 0,
             "flash_attention": L * prefills, "router_topk": 0, "moe_route": routed,
-            "moe_dispatch": routed, "moe_combine": routed,
+            "moe_dispatch": routed, "moe_combine": routed, "moe_combine_bwd": 0,
             "page_gather": copies, "page_scatter": copies}
 
 
@@ -2422,6 +2455,584 @@ def expert_counts(mgr):
     return {"hbm_hits": mgr.hbm_hits, "host_hits": mgr.host_hits,
             "fast_fraction": mgr.fast_fraction(), "modeled_cost": mgr.modeled_cost(),
             "placement": mgr.placement().tolist(), "vmstat": mgr.pool.vmstat.as_dict()}
+
+
+# --------------------------------------------------------------------- #
+# [train]: the training path
+# --------------------------------------------------------------------- #
+TRAIN_DATA = {"seq_len": 256, "global_batch": 8}  # the JAX CLI's defaults
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_WARMUP = 8, 4, 2
+TRAIN_MOE_LAYERS = 2  # of 32: 11.5 GB of float32 weights, about 57 GB of state
+# tinyllama's checkpointed run: 8 of 22 layers, 7.7 GB a checkpoint; the
+# three it writes keep the script's disk writes near 23 GB (52.8 GB uncut)
+TRAIN_CKPT_LAYERS = 8
+TRAIN_SMOKE_LR = 1e-3
+# cuda == cpu at smoke size: losses within 1e-5 relative and gradient norms
+# within 1e-4 relative (float32 sums in another order); parameters within
+# 2·lr a step everywhere (AdamW moves an element whose gradient is rounding
+# noise by up to lr either way) and, over all parameters, the difference's
+# norm within 1e-3 of the norm of what the three steps moved
+TRAIN_SMOKE_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "param_norm_rel": 1e-3}
+TRAIN_GRAD_REL = 2e-5  # full-width MoE gradients, kernels vs plain autograd
+DVALS_REL = 2e-5  # moe_combine_bwd's dvals: float32 dot products over d
+
+
+def expected_train_launches(moe_layers, forwards, backwards):
+    """A training run's MoE launches: route, dispatch and combine once an
+    MoE layer a forward (remat runs each block's forward again in
+    backward), the combine once more (the dispatch's backward) and
+    ``moe_combine_bwd`` once an MoE layer a backward; nothing else."""
+    f, b = moe_layers * forwards, moe_layers * backwards
+    return {"paged_attention": 0, "page_gather": 0, "page_scatter": 0, "router_topk": 0,
+            "flash_attention": 0, "moe_route": f, "moe_dispatch": f,
+            "moe_combine": f + b, "moe_combine_bwd": b}
+
+
+def check_train_launches(name, launches, expected, fails):
+    if launches != expected:
+        fails.append(f"{name}: launches {launches}, expected {expected}")
+
+
+def biased_route(torch, gen, T, d, E, k, C):
+    """A route where one expert is everyone's favourite, so experts overflow
+    and assignments drop: x with a mean of 0.1, expert 0's router column
+    raised by 0.01 (about +4 on its logit at d=4096)."""
+    from repro_torch.kernels import ops
+
+    x = torch.randn((T, d), generator=gen, device="cuda") + 0.1
+    w = torch.randn((d, E), generator=gen, device="cuda") * 0.02
+    w[:, 0] += 0.01
+    return x, w, ops.moe_route(x, w, k, C, impl="kernel")
+
+
+def check_moe_combine_bwd(torch, gen, flush, fails):
+    """``moe_combine_bwd`` on the card against its plain version: ``dye``
+    bit for bit, ``dvals`` within ``DVALS_REL`` of its largest magnitude
+    (at least 1), at phi3.5-moe's training shape (T=2048 of B=8 × S=256,
+    C=320) and decode shape (T=8, C=1) with tokens dropped,
+    deepseek-v2-lite's router shape (T=4096, E=64, k=6, d=2048, C=480),
+    and hand-made slots (unaligned d, empty slots, a token whose gates all
+    drop); the dispatch's backward (``moe_combine`` with unit gates)
+    exactly equal to its plain version; both timed beside the plain
+    versions and the bytes bound.  Returns the kernels-line row."""
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import router_topk as rt
+
+    cases = {}
+    for name, (T, d, E, k, C) in {
+            "phi3.5-moe train T=2048": (2048, 4096, 16, 2, 320),
+            "phi3.5-moe decode T=8": (8, 4096, 16, 2, 1),
+            "deepseek-v2-lite router T=4096": (4096, 2048, 64, 6, 480)}.items():
+        x, w, r = biased_route(torch, gen, T, d, E, k, C)
+        cases[name] = (x, w, r, torch.randn((E, C, d), generator=gen, device="cuda"),
+                       torch.randn((T, d), generator=gen, device="cuda") * 1e-3)
+    # hand-made: E=4, C=4, d=70 (the element loader), T=5, k=3; token 2's
+    # gates all drop, and slots 3, 7, 11, 15 take no token
+    E, C, d, T, k = 4, 4, 70, 5, 3
+    slot = torch.tensor([0, 1, 2, 4, 5, 6, 16, 16, 16, 8, 9, 10, 12, 13, 16],
+                        dtype=torch.int32, device="cuda")
+    cases["edges E=4 C=4 d=70"] = (None, None, rt.Route(
+        None, None, torch.rand((T, k), generator=gen, device="cuda"), None, slot, None,
+        None, None), torch.randn((E, C, d), generator=gen, device="cuda"),
+        torch.randn((T, d), generator=gen, device="cuda"))
+    out, worst = {}, 0.0
+    for name, (x, w, r, ye, dy) in cases.items():
+        E, C, d = ye.shape
+        dye, dvals = md.moe_combine_bwd(dy, ye, r.slot, r.vals)
+        want_dye, want_dvals = md.moe_combine_bwd_plain(dy, ye, r.slot, r.vals)
+        ones = torch.ones_like(r.vals)
+        dx = md.moe_combine(dye, r.slot, ones)  # the dispatch's backward
+        torch.cuda.synchronize()
+        dropped = int((r.slot == E * C).sum())
+        err = (dvals - want_dvals).abs().max().item()
+        tol = DVALS_REL * max(1.0, want_dvals.abs().max().item())
+        worst = max(worst, err)
+        kept = set(r.slot[r.slot < E * C].tolist())
+        empty = [s for s in range(E * C) if s not in kept]
+        res = {"dropped": dropped, "empty_slots": len(empty), "dye_equal": torch.equal(
+            dye, want_dye), "dvals_max_abs_err": err, "dvals_tolerance": tol,
+            "dropped_dvals_zero": bool((dvals.reshape(-1)[r.slot == E * C] == 0).all()),
+            "dispatch_backward_equal": torch.equal(dx, md.moe_combine_plain(dye, r.slot, ones))}
+        out[name] = res
+        if not (res["dye_equal"] and err <= tol and res["dropped_dvals_zero"]
+                and res["dispatch_backward_equal"] and dropped > 0
+                and bool(torch.isfinite(dvals).all())):
+            fails.append(f"moe_combine_bwd {name}: {res}")
+    log(f"[train] moe_combine_bwd checks {json.dumps(out)}")
+
+    def times(x, w, r, ye, dy):
+        E, C, d = ye.shape
+        T, k = r.vals.shape
+        kept = int((r.slot < E * C).sum())
+        nbytes = 4 * (T * d + kept * d + 2 * T * k + E * C * d + T * k)
+        b_ms, b_by = bound(nbytes, 3.0 * kept * d)
+        ones = torch.ones_like(r.vals)
+        src_rows = int(torch.unique(r.slot[r.slot < E * C]).numel())
+        db_ms, db_by = bound(4 * (src_rows * d + T * k * 2 + T * d), float(kept * d))
+        res = dict(
+            kernel_ms=time_ms(torch, lambda: md.moe_combine_bwd(dy, ye, r.slot, r.vals), flush),
+            plain_ms=time_ms(torch, lambda: md.moe_combine_bwd_plain(dy, ye, r.slot, r.vals),
+                             flush),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+            bound_flops=3.0 * kept * d, kept_assignments=kept,
+            dispatch_backward=dict(
+                kernel_ms=time_ms(torch, lambda: md.moe_combine(ye, r.slot, ones), flush),
+                plain_ms=time_ms(torch, lambda: md.moe_combine_plain(ye, r.slot, ones), flush),
+                bound_ms=db_ms, bound_by=db_by))
+        if x is not None:  # the route's backward: torch ops and two products
+            probs = torch.softmax(x @ w, dim=-1)
+            res["route_backward_ms"] = time_ms(torch, lambda: rt.route_backward(
+                x, w, probs, r.vals, r.idx, r.counts, dy[:, :k].contiguous(),
+                torch.ones((), device="cuda")), flush)
+        return res
+
+    timed = {name: times(*cases[name]) for name in list(cases)[:3]}
+    main_t = timed["phi3.5-moe train T=2048"]
+    row = {"name": "moe_combine_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+           "replaces": "src/repro/models/moe.py:133",
+           "replaces_note": "no TPU kernel: XLA differentiates the combine at "
+                            "src/repro/models/moe.py:133-135",
+           "shape": "phi3.5-moe training: T=2048 (B=8 × S=256), d=4096, E=16, k=2, "
+                    "C=320, tokens dropped",
+           "max_abs_err": worst, "tolerance": DVALS_REL,
+           "tolerance_note": "dvals: relative to max(1, max |dvals|) of each case; "
+                             "dye bit for bit",
+           "checks": len(cases), **main_t,
+           "decode_T8": timed["phi3.5-moe decode T=8"],
+           "deepseek_v2_lite_T4096_E64_k6": timed["deepseek-v2-lite router T=4096"]}
+    del cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def plain_moe_fwd(torch, p, mcfg, x):
+    """``moe_fwd`` through the plain versions' own torch ops, no
+    ``autograd.Function``: the independent reference for the gradients."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import router_topk as rt
+
+    B, S, d = x.shape
+    T, E, K = B * S, mcfg.n_experts, mcfg.top_k
+    xt = x.reshape(T, d)
+    C = max(1, int(mcfg.capacity_factor * T * K / E))
+    r = rt.moe_route_plain(xt, p["router"]["w"], K, C)
+    xe = md.moe_dispatch_plain(xt, r.src, E, C)
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * torch.einsum(
+        "ecd,edf->ecf", xe, p["wi_up"])
+    ye = torch.einsum("ecf,efd->ecd", h, p["wo"])
+    return md.moe_combine_plain(ye, r.slot, r.vals).reshape(B, S, d), r.aux
+
+
+def check_moe_gradients(torch, cfg, fails):
+    """One phi3.5-moe layer at published widths: every gradient (router,
+    experts, input) through the kernels' autograd within ``TRAIN_GRAD_REL``
+    of each leaf's max-abs under the plain versions (``impl="ref"``) and
+    under plain autograd of the plain ops, at T=2048 with a router biased
+    so that assignments drop, and at decode (T=8, C=1); every gradient
+    non-zero; the kernels' launches exact."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    mcfg = cfg.all_specs()[0].moe
+    d = cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    p = moe.init_moe(gen, d, mcfg, device="cuda")
+    with torch.no_grad():
+        p["router"]["w"][:, 0] += 0.01
+    names = ["router", "wi_gate", "wi_up", "wo", "x"]
+    out = {}
+    for case, (B, S) in {"T=2048 (B=8, S=256)": (8, 256), "decode T=8": (8, 1)}.items():
+        x = torch.randn((B, S, d), generator=gen, device="cuda") + 0.1
+        dy = torch.randn((B, S, d), generator=gen, device="cuda") * 1e-3
+        grads = {}
+        for impl in ("kernel", "ref", "plain autograd"):
+            leaves = [p["router"]["w"], p["wi_gate"], p["wi_up"], p["wo"]]
+            for t in leaves:
+                t.requires_grad_(True)
+            xx = x.clone().requires_grad_(True)
+            ops.reset_launch_counts()
+            if impl == "plain autograd":
+                y, aux = plain_moe_fwd(torch, p, mcfg, xx)
+            else:
+                y, aux = moe.moe_fwd(p, mcfg, xx, impl=impl)
+            grads[impl] = torch.autograd.grad((y * dy).sum() + 0.01 * aux, leaves + [xx])
+            torch.cuda.synchronize()
+            if impl == "kernel":
+                check_train_launches(f"moe gradient {case}", ops.launch_counts(),
+                                     expected_train_launches(1, 1, 1), fails)
+            for t in leaves:
+                t.requires_grad_(False)
+        res = {}
+        for ref in ("ref", "plain autograd"):
+            for n, a, b in zip(names, grads["kernel"], grads[ref]):
+                rel = ((a - b).abs().max() / b.abs().max()).item()
+                res[f"{n} vs {ref}"] = rel
+                if not rel <= TRAIN_GRAD_REL or not bool(b.abs().max() > 0):
+                    fails.append(f"moe gradient {case}: {n} {rel} of its max-abs vs {ref}")
+        T = B * S
+        C = max(1, int(mcfg.capacity_factor * T * mcfg.top_k / mcfg.n_experts))
+        r = ops.moe_route(x.reshape(T, d), p["router"]["w"], mcfg.top_k, C)
+        res["dropped"] = int((r.slot == mcfg.n_experts * C).sum())
+        if res["dropped"] <= 0:
+            fails.append(f"moe gradient {case}: no assignment dropped")
+        out[case] = res
+        del grads
+    log(f"[train] moe gradients, kernels vs plain (relative to each max-abs) "
+        f"{json.dumps(out)}")
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_to(tree, device):
+    from repro_torch.models import nn
+
+    return nn.tree_map(lambda t: t.to(device), tree)
+
+
+def train_smoke_phase(torch, arch, fails):
+    """Three ``make_train_step`` steps of ``arch``'s smoke config on the
+    card and on the CPU from the same weights and batches (plain, then
+    ``accum=2``, then ``remat=True``): losses, gradient norms and final
+    parameters held to ``TRAIN_SMOKE_TOL``; the MoE launches exact.
+    Returns the card's launch counts."""
+    from repro_torch import optim
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step, to_device
+    from repro_torch.models import nn
+    from repro_torch.models.model import init_params
+
+    cfg = get_smoke_config(arch)
+    oc = optim.AdamWConfig(lr=TRAIN_SMOKE_LR)
+    cpu_p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batches = make_batches(DataConfig(seq_len=32, global_batch=4, n_patches=4), cfg)
+    batches = [next(batches) for _ in range(3)]
+    kinds = [dict(), dict(accum=2), dict(remat=True)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(cpu_p, dev)
+        st = optim.init(p, oc)
+        ops.reset_launch_counts()
+        losses, gnorms = [], []
+        for kw, b in zip(kinds, batches):
+            p, st, m = make_train_step(cfg, oc, **kw)(p, st, to_device(b, dev))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            if int(m["skipped"]):
+                fails.append(f"train smoke {arch} {dev}: a step was skipped")
+        runs[dev] = (losses, gnorms, nn.tree_leaves(tree_to(p, "cpu")), ops.launch_counts())
+    (l0, g0, p0, _), (l1, g1, p1, launches) = runs["cpu"], runs["cuda"]
+    moved = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in
+                           zip(p0, nn.tree_leaves(cpu_p)))).item()
+    diff = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(p0, p1))).item()
+    max_diff = max((a - b).abs().max().item() for a, b in zip(p0, p1))
+    res = {"losses_cpu": l0, "losses_cuda": l1, "grad_norms_cpu": g0, "grad_norms_cuda": g1,
+           "loss_rel": max(abs(a - b) / abs(a) for a, b in zip(l0, l1)),
+           "grad_norm_rel": max(abs(a - b) / abs(a) for a, b in zip(g0, g1)),
+           "param_norm_rel": diff / moved, "param_max_abs": max_diff}
+    ok = (res["loss_rel"] <= TRAIN_SMOKE_TOL["loss_rel"]
+          and res["grad_norm_rel"] <= TRAIN_SMOKE_TOL["grad_norm_rel"]
+          and res["param_norm_rel"] <= TRAIN_SMOKE_TOL["param_norm_rel"]
+          and max_diff <= 2 * TRAIN_SMOKE_LR * len(kinds))
+    if not ok:
+        fails.append(f"train smoke {arch}: cuda != cpu {res}")
+    moe_layers = sum(1 for s in cfg.all_specs() if s.moe is not None)
+    # forwards: 1, 2 (accum), 2 (remat recomputes); backwards 1, 2, 1
+    check_train_launches(f"train smoke {arch}", launches,
+                         expected_train_launches(moe_layers, 5, 4), fails)
+    log(f"[train] smoke {arch} cuda vs cpu {json.dumps(res)}")
+    return launches
+
+
+def run_steps(step_fn, params, opt, batches, n):
+    """``n`` steps on the card from the next ``n`` numpy batches, each timed
+    as ``train_loop`` times it (to the host read of its loss) →
+    ``(params, opt, losses, grad_norms, seconds, skipped)``."""
+    from repro_torch.launch.train import to_device
+
+    losses, gnorms, secs, skipped = [], [], [], 0
+    for _ in range(n):
+        b = next(batches)
+        t0 = time.time()
+        params, opt, m = step_fn(params, opt, to_device(b, "cuda"))
+        losses.append(float(m["loss"]))
+        secs.append(time.time() - t0)
+        gnorms.append(float(m["grad_norm"]))
+        skipped += int(m["skipped"])
+    return params, opt, losses, gnorms, secs, skipped
+
+
+def train_dense_phase(torch, smi, fails):
+    """Full-width tinyllama-1.1b through ``train_loop`` at the JAX CLI's
+    defaults (B=8, S=256), warmup 2, 8 steps: the loss must fall.  Then 4
+    steps all on the card and 4 with the optimizer state's ``SLOW`` leaves
+    (``plan_offload(opt, total // 3)``) in pinned host memory, equal bit
+    for bit to each other and to the loop's first 4; then 2 traced
+    steps.  Then the checkpoints: the same run cut to
+    ``TRAIN_CKPT_LAYERS`` layers, a checkpoint every 4 steps into
+    ``build/train_ckpt``, and a relaunch from step 4 whose losses,
+    gradient norms and final state must equal the uninterrupted run's bit
+    for bit (deterministic algorithms).  Returns the launch counts of the
+    full-depth loop."""
+    import shutil
+    import statistics
+    import warnings
+
+    from repro_torch import optim
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import Tier
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step, profile_train_steps, train_loop
+    from repro_torch.models import nn
+    from repro_torch.models.model import init_params, param_bytes
+    from repro_torch.optim.offload import apply_placement, plan_offload
+
+    cfg = get_config("tinyllama-1.1b")
+    dcfg = DataConfig(**TRAIN_DATA)
+    oc = optim.AdamWConfig()
+    schedule = optim.cosine_schedule(TRAIN_WARMUP, TRAIN_STEPS)
+    n_params = sum(t.numel() for t in _leaves(init_params(
+        cfg, torch.Generator(), device="meta")))
+    tokens = TRAIN_DATA["seq_len"] * TRAIN_DATA["global_batch"]
+
+    def fresh(c):
+        p = init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        return p, optim.init(p, oc)
+
+    def state_equal(a, b):
+        return all(torch.equal(x, y.to(x.device)) for x, y in
+                   zip(nn.tree_leaves(a), nn.tree_leaves(b)))
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = train_loop(cfg, dcfg, oc, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP,
+                         log_every=0, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+
+        # 4 steps all on the card, then 4 with the optimizer state offloaded
+        step_fn = make_train_step(cfg, oc, schedule, donate=True)
+        batches = make_batches(dcfg, cfg)
+        ref_p, ref_o, ref_l, ref_g, _, _ = run_steps(step_fn, *fresh(cfg), batches, 4)
+        params, opt = fresh(cfg)
+        total = sum(x.numel() * x.element_size() for x in nn.tree_leaves(opt))
+        plan = plan_offload(opt, total // 3)
+        opt = apply_placement(opt, plan)
+        placed = dict(nn.tree_leaves_with_path(opt))
+        slow = [placed[n] for n, t in plan.placement.items() if t == Tier.SLOW]
+        slow_bytes = sum(x.numel() * x.element_size() for x in slow)
+        pinned_ok = all(x.device.type == "cpu" and x.is_pinned() for x in slow) and all(
+            placed[n].is_cuda for n, t in plan.placement.items() if t == Tier.FAST)
+        params, opt, off_l, off_g, off_s, _ = run_steps(step_fn, params, opt,
+                                                  make_batches(dcfg, cfg), 4)
+        offload_equal = state_equal({"p": params, "o": opt}, {"p": ref_p, "o": ref_o})
+        # the host link at these leaves: every SLOW leaf to the card and back
+        dev_bufs = [torch.empty(x.shape, dtype=x.dtype, device="cuda") for x in slow]
+        link = {}
+        for way in ("host_to_device", "device_to_host"):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            for h, dbuf in zip(slow, dev_bufs):
+                (dbuf.copy_(h, non_blocking=True) if way == "host_to_device"
+                 else h.copy_(dbuf, non_blocking=True))
+            ev[1].record()
+            torch.cuda.synchronize()
+            link[f"{way}_GBps"] = slow_bytes / (ev[0].elapsed_time(ev[1]) * 1e-3) / 1e9
+        del dev_bufs, params, opt, slow, placed
+        gc.collect()
+        torch.cuda.empty_cache()
+        # two traced steps (5 and 6), all state on the card
+        prof = profile_train_steps(step_fn, ref_p, ref_o, batches, "cuda",
+                                   str(ROOT / "build" / "profile" / "train_tinyllama-1.1b"))
+        del ref_p, ref_o
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # checkpoints and a relaunch, at a cut depth: a full-depth state is
+        # 17.6 GB a checkpoint, and the run writes three
+        pattern = cfg.stacks[0][0]
+        ccfg = dataclasses.replace(cfg, stacks=((pattern, TRAIN_CKPT_LAYERS),))
+        ckpt = ROOT / "build" / "train_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        kw = dict(steps=TRAIN_STEPS, ckpt_dir=str(ckpt), ckpt_every=TRAIN_CKPT_EVERY,
+                  warmup=TRAIN_WARMUP, log_every=0, device="cuda")
+        # a tree of the state's structure with a 0-element leaf on the card
+        # wherever the state has one: restore() reads only structure and device
+        meta_p = init_params(ccfg, torch.Generator(), device="meta")
+        like = nn.tree_map(lambda t: torch.empty(0, dtype=t.dtype, device="cuda"),
+                           {"params": meta_p, "opt": optim.init(meta_p, oc)})
+        mgr = CheckpointManager(str(ckpt))
+        rep_b = train_loop(ccfg, dcfg, oc, **kw)
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+        b_final = mgr.restore(TRAIN_STEPS, like)
+        shutil.rmtree(ckpt / f"step_{TRAIN_STEPS:010d}")  # a relaunch finds step 4
+        rep_c = train_loop(ccfg, dcfg, oc, **kw)
+        restart_equal = state_equal(b_final, mgr.restore(TRAIN_STEPS, like))
+        del b_final
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    nondet = sorted({str(w.message).split("\n")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+
+    med = statistics.median(rep.step_seconds)
+    res = {
+        "arch": "tinyllama-1.1b", "layers": cfg.n_layers, "params": n_params,
+        "weight_bytes": param_bytes(cfg), "batch": TRAIN_DATA, "steps": TRAIN_STEPS,
+        "losses": rep.losses, "grad_norms": rep.grad_norms,
+        "step_seconds": rep.step_seconds, "median_ms_per_step": med * 1e3,
+        "tokens_per_s": tokens / med,
+        "fp32_peak_share": 6.0 * n_params * tokens / med / PEAK_FLOPS["float32"],
+        "peak_device_memory_GiB": peak / 2**30, "wall_s": wall, "skipped": rep.skipped,
+        "stragglers": rep.stragglers,
+        "offload": {"hbm_budget_bytes": total // 3, "state_bytes": total,
+                    "slow_leaves": len(plan.placement) - sum(
+                        t == Tier.FAST for t in plan.placement.values()),
+                    "slow_bytes": slow_bytes, "fraction_fast": plan.fraction_fast(),
+                    "pinned": pinned_ok, "host_link_bytes_per_step_each_way": slow_bytes,
+                    **link, "losses": off_l,
+                    "losses_equal": off_l == ref_l == rep.losses[:4],
+                    "grad_norms_equal": off_g == ref_g == rep.grad_norms[:4],
+                    "state_equal": offload_equal,
+                    "median_ms_per_step": statistics.median(off_s) * 1e3,
+                    "no_offload_median_ms_per_step": med * 1e3},
+        "relaunch": {"layers": TRAIN_CKPT_LAYERS, "weight_bytes": param_bytes(ccfg),
+                     "checkpoint_bytes_on_disk": ckpt_bytes, "losses": rep_b.losses,
+                     "resumed_from": rep_c.resumed_from, "steps_run": rep_c.steps_run,
+                     "relaunch_losses": rep_c.losses,
+                     "losses_equal": rep_c.losses == rep_b.losses[TRAIN_CKPT_EVERY:],
+                     "grad_norms_equal":
+                         rep_c.grad_norms == rep_b.grad_norms[TRAIN_CKPT_EVERY:],
+                     "final_state_equal": restart_equal},
+        "nondeterministic_ops": nondet, "profile_2_steps": prof, "card": smi}
+    log(f"[train] tinyllama-1.1b {json.dumps(res)}")
+    if not (rep.losses[-1] < rep.losses[0] and rep.skipped == 0
+            and all(math.isfinite(v) for v in rep.losses)):
+        fails.append(f"train tinyllama: losses {rep.losses}, skipped {rep.skipped}")
+    rl = res["relaunch"]
+    if not (rl["resumed_from"] == TRAIN_CKPT_EVERY and rl["losses_equal"]
+            and rl["grad_norms_equal"] and restart_equal and rep_b.skipped == 0
+            and rep_b.losses[-1] < rep_b.losses[0]):
+        fails.append(f"train tinyllama: the relaunch from step {TRAIN_CKPT_EVERY} differs: "
+                     f"{rl}; nondeterministic ops: {nondet}")
+    off = res["offload"]
+    if not (pinned_ok and off["losses_equal"] and off["grad_norms_equal"]
+            and offload_equal and 0 < slow_bytes < total):
+        fails.append(f"train tinyllama: the offloaded run differs: {off}")
+    check_train_launches("train tinyllama", launches, expected_train_launches(0, 0, 0), fails)
+    return launches
+
+
+def train_moe_phase(torch, moe_full, smi, fails):
+    """Full-width phi3.5-moe cut to ``TRAIN_MOE_LAYERS`` of its 32 layers:
+    4 ``make_train_step`` steps at B=8, S=256 (finite losses, none
+    skipped) with the MoE launches exact, then 2 traced steps."""
+    import statistics
+
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step, profile_train_steps
+    from repro_torch.models import nn
+    from repro_torch.models.model import init_params, param_bytes
+
+    pattern = moe_full.stacks[0][0]
+    layers = TRAIN_MOE_LAYERS
+    # the parameters, their gradients, m, v and the master copy
+    if 5 * param_bytes(dataclasses.replace(moe_full, stacks=((pattern, layers),))) \
+            > 75 * 2**30:
+        layers = 1
+    cfg = dataclasses.replace(moe_full, stacks=((pattern, layers),))
+    log(f"[train] {MOE_ARCH}: depth cut from {moe_full.n_layers} to {layers} layers "
+        f"({param_bytes(cfg) / 1e9:.2f} GB of float32 weights), widths as published")
+    oc = optim.AdamWConfig()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    opt = optim.init(params, oc)
+    step_fn = make_train_step(cfg, oc, optim.cosine_schedule(TRAIN_WARMUP, TRAIN_STEPS),
+                              donate=True)
+    batches = make_batches(DataConfig(**TRAIN_DATA), cfg)
+    ops.reset_launch_counts()
+    steps = 4
+    params, opt, losses, _, secs, skipped = run_steps(step_fn, params, opt, batches, steps)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_train_steps(step_fn, params, opt, batches, "cuda",
+                               str(ROOT / "build" / "profile" / "train_phi3.5-moe"))
+    n_params = sum(t.numel() for t in nn.tree_leaves(params))
+    mcfg = pattern[0].moe
+    expert = sum(params["stacks"][0]["blocks"][0]["moe"][k].numel()
+                 for k in ("wi_gate", "wi_up", "wo"))
+    active = n_params - expert + expert * mcfg.top_k // mcfg.n_experts
+    tokens = TRAIN_DATA["seq_len"] * TRAIN_DATA["global_batch"]
+    med = statistics.median(secs)
+    res = {"arch": MOE_ARCH, "layers": layers, "params": n_params, "active_params": active,
+           "weight_bytes": param_bytes(cfg), "batch": TRAIN_DATA, "steps": steps,
+           "losses": losses, "step_seconds": secs, "median_ms_per_step": med * 1e3,
+           "tokens_per_s": tokens / med,
+           "fp32_peak_share_active": 6.0 * active * tokens / med / PEAK_FLOPS["float32"],
+           "peak_device_memory_GiB": peak / 2**30, "skipped": skipped,
+           "launches": launches, "profile_2_steps": prof, "card": smi}
+    log(f"[train] {MOE_ARCH} {json.dumps(res)}")
+    if skipped or not all(math.isfinite(v) for v in losses):
+        fails.append(f"train {MOE_ARCH}: losses {losses}, skipped {skipped}")
+    check_train_launches(f"train {MOE_ARCH}", launches,
+                         expected_train_launches(layers, steps, steps), fails)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, layers
+
+
+def train_phase(torch, moe_full, smi, rows):
+    """The [train] phase: the backward kernel, full-width MoE gradients,
+    cuda == cpu training at smoke size, full-width tinyllama-1.1b with a
+    relaunch and an offloaded run, phi3.5-moe cut to 2 layers.  Adds the
+    ``moe_combine_bwd`` row and the route backward's time to ``rows``;
+    returns each training run's launch counts."""
+    fails: list = []
+    flush = torch.ones(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    row = check_moe_combine_bwd(torch, gen, flush, fails)
+    del flush
+    route_row = next(r for r in rows if r["name"] == "moe_route")
+    route_row["backward_T2048_ms"] = row.pop("route_backward_ms")
+    route_row["backward_note"] = ("the route's backward, torch ops on (T, E) and two "
+                                  "products, at phi3.5-moe's training shape")
+    rows.append(row)
+    moe_grads = check_moe_gradients(torch, moe_full, fails)
+    row["full_width_gradients"] = moe_grads
+    if fails:
+        fail("; ".join(fails))
+    launches = {}
+    for arch in ("tinyllama-1.1b", MOE_ARCH) + FAMILIES:
+        launches[f"train smoke/{arch}"] = train_smoke_phase(torch, arch, fails)
+    if fails:
+        fail("; ".join(fails))
+    launches["train/tinyllama-1.1b"] = train_dense_phase(torch, smi, fails)
+    if fails:
+        fail("; ".join(fails))
+    moe_launches, layers = train_moe_phase(torch, moe_full, smi, fails)
+    launches[f"train/{MOE_ARCH} ({layers} layers)"] = moe_launches
+    if fails:
+        fail("; ".join(fails))
+    return launches
 
 
 def meminfo_bytes(key: str) -> int:

@@ -7,8 +7,8 @@ architectures the JAX ``ServingEngine`` pages (GQA or MHA attention):
 tinyllama-1.1b, gemma3-4b, phi3-medium-14b, chatglm3-6b, qwen2-vl-2b,
 musicgen-medium (dense FFNs) and phi3.5-moe-42b-a6.6b (MoE).  The three
 the JAX engine does not serve (deepseek-v2-lite-16b, MLA; zamba2-2.7b and
-xlstm-350m, recurrent mixers) belong to ROADMAP Queue 1 item 7's
-training path and raise ``NotImplementedError`` here.
+xlstm-350m, recurrent mixers) belong to ROADMAP Queue 1 item 7's next
+slice, "MLA and the SSM mixers", and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -32,8 +32,7 @@ def _module(name: str):
     if mod not in ALIASES.values():
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (have {list(ALIASES)}); "
-            "see ROADMAP Queue 1 item 7, 'training path' (MLA and the SSM "
-            "mixers)"
+            "see ROADMAP Queue 1 item 7, 'MLA and the SSM mixers'"
         )
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

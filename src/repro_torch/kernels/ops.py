@@ -7,6 +7,12 @@ fallback: a kernel that fails to build or launch raises.
 ``impl="kernel"`` insists on the kernel (and raises for a CPU tensor);
 ``impl="ref"`` runs the plain version on any device, which is how the
 chip smoke test compares the two on the card.
+
+The MoE entry points carry a gradient when an input asks for one: they
+run through ``torch.autograd.Function``s whose forward and backward take
+the same side (the route's backward is torch ops; the combine's is the
+``moe_combine_bwd`` kernel or its plain version; the dispatch's is the
+combine with unit gates).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ KERNELS = {
     "moe_route": _rt.moe_route,
     "moe_dispatch": _md.moe_dispatch,
     "moe_combine": _md.moe_combine,
+    "moe_combine_bwd": _md.moe_combine_bwd,
 }
 
 
@@ -83,23 +90,45 @@ def router_topk(logits, k, impl="auto"):
     return fn(logits, k)
 
 
+def _grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def moe_route(x, w, k, capacity, impl="auto"):
     """The MoE routing stage of ``x (T, d)`` through the router weight
-    ``w (d, E)`` at ``capacity`` slots an expert → ``router_topk.Route``."""
-    fn = _rt.moe_route if _pick(impl, x) == "kernel" else _rt.moe_route_plain
-    return fn(x, w, k, capacity)
+    ``w (d, E)`` at ``capacity`` slots an expert → ``router_topk.Route``;
+    ``vals`` and ``aux`` carry the gradient of ``x`` and ``w``."""
+    kernel = _pick(impl, x) == "kernel"
+    if _grad(x, w):
+        return _rt.Route(*_rt.RouteFn.apply(x, w, k, capacity, kernel))
+    return (_rt.moe_route if kernel else _rt.moe_route_plain)(x, w, k, capacity)
 
 
-def moe_dispatch(x, src, n_experts, capacity, impl="auto"):
-    """→ ``xe (E, C, d)``: slot s holds row ``src[s]`` of ``x``, or zeros."""
-    fn = _md.moe_dispatch if _pick(impl, x) == "kernel" else _md.moe_dispatch_plain
+def moe_dispatch(x, src, n_experts, capacity, impl="auto", slot=None):
+    """→ ``xe (E, C, d)``: slot s holds row ``src[s]`` of ``x``, or zeros.
+    The gradient of ``x`` needs the route's ``slot``."""
+    kernel = _pick(impl, x) == "kernel"
+    if _grad(x):
+        if slot is None:
+            raise ValueError("moe_dispatch: the gradient of x needs the route's slot")
+        return _md.Dispatch.apply(x, src, slot, n_experts, capacity, kernel)
+    fn = _md.moe_dispatch if kernel else _md.moe_dispatch_plain
     return fn(x, src, n_experts, capacity)
 
 
 def moe_combine(ye, slot, vals, impl="auto"):
     """→ ``y (T, d)``, each token's expert rows weighted by its gates."""
-    fn = _md.moe_combine if _pick(impl, ye) == "kernel" else _md.moe_combine_plain
-    return fn(ye, slot, vals)
+    kernel = _pick(impl, ye) == "kernel"
+    if _grad(ye, vals):
+        return _md.Combine.apply(ye, slot, vals, kernel)
+    return (_md.moe_combine if kernel else _md.moe_combine_plain)(ye, slot, vals)
+
+
+def moe_combine_bwd(dy, ye, slot, vals, impl="auto"):
+    """The combine's gradient → ``(dye (E, C, d), dvals (T, k))``."""
+    fn = (_md.moe_combine_bwd if _pick(impl, ye) == "kernel"
+          else _md.moe_combine_bwd_plain)
+    return fn(dy, ye, slot, vals)
 
 
 def launch_counts() -> Dict[str, int]:

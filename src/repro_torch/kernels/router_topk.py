@@ -22,6 +22,12 @@ their launches (``router_topk.launches``, ``moe_route.launches``).
 :func:`router_topk_plain` (``repro/kernels/ref.py:91-98`` with the
 kernel's tie order) and :func:`moe_route_plain` are what ``kernels.ops``
 runs for a CPU tensor.
+
+:class:`RouteFn` is the routing stage's ``torch.autograd.Function``
+(over the kernel or the plain version): ``vals`` and ``aux`` are its
+differentiable outputs, and its backward (:func:`route_backward`) is
+torch ops on the ``(T, E)`` tensors and two matrix products, as JAX
+differentiates the same lines in XLA.
 """
 
 from __future__ import annotations
@@ -116,7 +122,7 @@ def router_topk_plain(logits: torch.Tensor, k: int
         i = work.argmax(dim=-1, keepdim=True)
         vals.append(work.gather(-1, i))
         idxs.append(i)
-        work.scatter_(-1, i, -1.0)
+        work = work.scatter(-1, i, -1.0)  # out of place: autograd can see through it
     v = torch.cat(vals, dim=-1)
     v = v / v.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     return probs, v, torch.cat(idxs, dim=-1).to(torch.int32)
@@ -281,3 +287,56 @@ def moe_route_plain(x: torch.Tensor, w: torch.Tensor, k: int, C: int) -> Route:
     ``x @ w``, then :func:`route_logits_plain`."""
     _check_route(x, w, k, C)
     return route_logits_plain(x @ w, k, C)
+
+
+# --------------------------------------------------------------------- #
+# autograd of the routing stage
+# --------------------------------------------------------------------- #
+def route_backward(x: torch.Tensor, w: torch.Tensor, probs: torch.Tensor,
+                   vals: torch.Tensor, idx: torch.Tensor, counts: torch.Tensor,
+                   dvals, daux):
+    """``(dx, dw)`` from the gradients of the gates and of the aux loss,
+    as JAX differentiates ``repro/models/moe.py:90-98``:
+
+    * the renormalisation ``vals = p_sel / max(Σ_j p_sel, 1e-9)``:
+      ``dp_sel = (dvals − Σ_j dvals·vals) / max(Σ_j p_sel, 1e-9)`` (the
+      second term only where the sum is above the clamp);
+    * ``dp_sel`` scattered into the experts ``idx`` (distinct in a row);
+    * the aux loss ``E · Σ_e mean_t(probs)[e] · ce[e]`` adds ``daux · E ·
+      ce[e] / T`` to every row (``ce``, the assignment counts over ``T·k``,
+      is a constant);
+    * the softmax: ``dlogits = probs · (dprobs − Σ_e dprobs·probs)``;
+    * the router product: ``dx = dlogits @ wᵀ``, ``dw = xᵀ @ dlogits``.
+    """
+    T, E = probs.shape
+    K = idx.shape[1]
+    dprobs = torch.zeros_like(probs)
+    if dvals is not None:
+        S = probs.gather(1, idx.long()).sum(dim=-1, keepdim=True)
+        Sc = S.clamp_min(1e-9)
+        inner = (dvals * vals).sum(dim=-1, keepdim=True)
+        dp_sel = (dvals - torch.where(S > 1e-9, inner, torch.zeros_like(inner))) / Sc
+        dprobs.scatter_(1, idx.long(), dp_sel)
+    if daux is not None:
+        ce = counts.float() / (T * K)
+        dprobs = dprobs + (daux * E) * ce / T
+    dlogits = probs * (dprobs - (dprobs * probs).sum(dim=-1, keepdim=True))
+    return dlogits @ w.t(), x.t() @ dlogits
+
+
+class RouteFn(torch.autograd.Function):
+    """The routing stage with a gradient: returns the fields of
+    :class:`Route`; only ``vals`` and ``aux`` carry one."""
+
+    @staticmethod
+    def forward(ctx, x, w, k, C, kernel):
+        r = (moe_route if kernel else moe_route_plain)(x, w, k, C)
+        ctx.save_for_backward(x, w, r.probs, r.vals, r.idx, r.counts)
+        ctx.mark_non_differentiable(r.logits, r.probs, r.idx, r.slot, r.src, r.counts)
+        return tuple(r)
+
+    @staticmethod
+    def backward(ctx, _dlogits, _dprobs, dvals, _didx, _dslot, _dsrc, _dcounts, daux):
+        x, w, probs, vals, idx, counts = ctx.saved_tensors
+        dx, dw = route_backward(x, w, probs, vals, idx, counts, dvals, daux)
+        return dx, dw, None, None, None

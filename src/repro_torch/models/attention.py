@@ -1,14 +1,20 @@
-"""Attention helpers of the port (counterpart of ``repro/models/attention.py``).
+"""Attention mixers of the port (counterpart of ``repro/models/attention.py``).
 
-This slice carries what the tiered-KV serving engine calls: the
-:class:`AttnConfig` dataclass, the cos/sin tables and rotation
-(:func:`make_cos_sin`, :func:`_rotate`) and :func:`init_gqa` for the
-port's own weights.  Prefill attention runs the flash kernel
-(``kernels.ops.flash_attention``); :func:`reference_attention` is the
-naive full-score attention in the model's ``(B, S, H, D)`` layout that
-the JAX package's ``attention_fwd`` and dense decode also take, kept for
-their ports.  The chunked training path, the dense-cache decode and MLA
-are later slices (ROADMAP Queue 1).
+GQA and MHA, every rope variant, windowed or not:
+
+* :class:`AttnConfig`, the cos/sin tables and rotation
+  (:func:`make_cos_sin`, :func:`_rotate`) and :func:`init_gqa` for the
+  port's own weights;
+* the training forward: :func:`gqa_fwd` through
+  :func:`chunked_attention`, the online softmax over KV chunks that the
+  JAX package runs in XLA (no Pallas kernel backs it, so it stays plain
+  torch ops under autograd), dispatched by :func:`attention_fwd`;
+* :func:`reference_attention`, the naive full-score attention, the
+  oracle and ``impl="reference"``.
+
+The serving engine's prefill runs the flash kernel
+(``kernels.ops.flash_attention``) instead.  MLA and the dense-cache
+decode are a later slice (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -120,3 +126,104 @@ def reference_attention(
     p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
     out = torch.einsum("bshgt,bthd->bshgd", p, v.float())
     return out.reshape(B, S, H, Dv).to(q.dtype)
+
+
+# ===================================================================== #
+# chunked online-softmax attention (the training path)
+# ===================================================================== #
+DEFAULT_KV_CHUNK = 1024
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, S, H, D) — queries (already rotated)
+    k: torch.Tensor,  # (B, T, Hkv, D)
+    v: torch.Tensor,  # (B, T, Hkv, Dv)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,  # absolute position of q[0] (prefill chunks)
+    scale: Optional[float] = None,
+    kv_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Blockwise attention with a running softmax (never builds S×T
+    scores), the loop of ``repro/models/attention.py:107-174`` with its
+    masks and guards: a fully masked row keeps ``m = -inf`` and takes
+    ``m_safe = 0``, so no ``-inf - -inf`` reaches an ``exp`` whose
+    gradient is used; the output divides by ``max(l, 1e-20)``.
+
+    GQA folds the group dim into the batch of einsums, so KV is never
+    materialized per query head.
+    """
+    B, S, H, D = q.shape
+    T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, S, Hkv, G, D) * torch.tensor(scale, dtype=q.dtype)
+
+    kv_chunk = kv_chunk or min(DEFAULT_KV_CHUNK, max(T, 16))
+    nchunks = -(-T // kv_chunk)
+    Tpad = nchunks * kv_chunk
+    if Tpad != T:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, Tpad - T))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, Tpad - T))
+    kc = k.reshape(B, nchunks, kv_chunk, Hkv, D)
+    vc = v.reshape(B, nchunks, kv_chunk, Hkv, Dv)
+
+    dev = q.device
+    q_pos = q_offset + torch.arange(S, device=dev)  # (S,)
+    m = torch.full((B, S, Hkv, G), float("-inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((B, S, Hkv, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, S, Hkv, G, Dv), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for c in range(nchunks):
+        kb, vb = kc[:, c], vc[:, c]
+        k_pos = c * kv_chunk + torch.arange(kv_chunk, device=dev)  # (C,)
+        s = torch.einsum("bshgd,bchd->bshgc", qg, kb)  # (B,S,Hkv,G,C)
+        if causal:
+            mask = k_pos[None, :] <= q_pos[:, None]
+        else:
+            mask = torch.ones((S, kv_chunk), dtype=torch.bool, device=dev)
+        if window is not None:
+            mask = mask & (k_pos[None, :] > (q_pos[:, None] - window))
+        mask = mask & (k_pos < T)[None, :]  # padding
+        mask5 = mask[None, :, None, None, :]
+        s = torch.where(mask5, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows (m_new = -inf): exp(-inf - -inf) → nan
+        m_safe = torch.where(torch.isfinite(m_new), m_new, zero)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(mask5, p, zero)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), zero)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bshgc,bchd->bshgd", p.to(vb.dtype), vb)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-20)
+    return out.reshape(B, S, H, Dv).to(q.dtype)
+
+
+def gqa_fwd(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
+            impl: str = "chunked") -> torch.Tensor:
+    """Full-sequence causal GQA: ``x (B, S, d)``, ``positions (B, S)`` or
+    ``(3, B, S)`` → ``(B, S, d)``."""
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = nn.dense(p["wq"], x).reshape(B, S, H, D)
+    k = nn.dense(p["wk"], x).reshape(B, S, Hkv, D)
+    v = nn.dense(p["wv"], x).reshape(B, S, Hkv, D)
+    cos, sin = make_cos_sin(cfg, positions)
+    if cos is not None:
+        q = _rotate(cfg, q, cos, sin)
+        k = _rotate(cfg, k, cos, sin)
+    fn = chunked_attention if impl == "chunked" else reference_attention
+    o = fn(q, k, v, causal=True, window=cfg.window)
+    return nn.dense(p["wo"], o.reshape(B, S, H * D))
+
+
+def attention_fwd(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
+                  impl: str = "chunked") -> torch.Tensor:
+    if cfg.is_mla:
+        raise NotImplementedError(
+            "MLA attention is not ported yet: ROADMAP Queue 1 item 7, 'MLA and "
+            "the SSM mixers'")
+    return gqa_fwd(p, cfg, x, positions, impl=impl)

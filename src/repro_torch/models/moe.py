@@ -13,6 +13,12 @@ order; overflowed assignments land in a discarded slot ``E * C`` and
 contribute nothing.  The expert SwiGLU runs batched over all ``E``
 experts as einsums, and the expert and shared products stay plain
 ``torch`` matmuls.
+
+Under autograd the three calls carry the gradient of JAX's ``moe_fwd``
+(router, experts, input, shared FFN): the route's through its gates and
+aux loss, the dispatch's as the sum of each token's slot gradients, the
+combine's through the ``moe_combine_bwd`` kernel (``kernels/ops.py``).
+Float32 only on the card: the MoE kernels take no other type.
 """
 
 from __future__ import annotations
@@ -63,9 +69,11 @@ def init_moe(generator: torch.Generator, d_model: int, cfg: MoeConfig,
 
 
 def moe_fwd(p: Params, cfg: MoeConfig, x: torch.Tensor,
-            capacity: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            capacity: Optional[int] = None, impl: str = "auto"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x (B, S, d)`` → ``(y (B, S, d), aux_loss)``; ``capacity``
-    overrides the slots an expert takes."""
+    overrides the slots an expert takes; ``impl`` picks the kernels or
+    their plain versions (``kernels.ops``)."""
     B, S, d = x.shape
     T = B * S
     E, K = cfg.n_experts, cfg.top_k
@@ -75,14 +83,14 @@ def moe_fwd(p: Params, cfg: MoeConfig, x: torch.Tensor,
 
     C = capacity if capacity is not None else max(
         1, int(cfg.capacity_factor * T * K / E))
-    r = kernel_ops.moe_route(xt.float(), p["router"]["w"], K, C)
-    xe = kernel_ops.moe_dispatch(xt, r.src, E, C)  # (E, C, d)
+    r = kernel_ops.moe_route(xt.float(), p["router"]["w"], K, C, impl=impl)
+    xe = kernel_ops.moe_dispatch(xt, r.src, E, C, impl=impl, slot=r.slot)  # (E, C, d)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * torch.einsum(
         "ecd,edf->ecf", xe, p["wi_up"])
     ye = torch.einsum("ecf,efd->ecd", h, p["wo"]).contiguous()  # (E, C, d)
 
-    y = kernel_ops.moe_combine(ye, r.slot, r.vals)
+    y = kernel_ops.moe_combine(ye, r.slot, r.vals, impl=impl)
     if "shared" in p:
         y = y + ffn_fwd(p["shared"], xt, "swiglu")
     return y.reshape(B, S, d), r.aux

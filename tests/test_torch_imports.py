@@ -48,7 +48,7 @@ def test_no_jax_or_repro_import(path):
 def test_port_covers_its_layout():
     names = {p.relative_to(REPO / "src" / "repro_torch").parts[0] for p in FILES[:-1]}
     assert {"core", "kernels", "models", "serving", "configs", "launch", "analysis",
-            "qos", "traffic", "benchmarks", "fleet"} <= names
+            "qos", "traffic", "benchmarks", "fleet", "optim", "data", "checkpoint"} <= names
 
 
 def test_serving_engine_import_loads_no_jax():
@@ -58,7 +58,8 @@ def test_serving_engine_import_loads_no_jax():
             "repro_torch.traffic, repro_torch.serving.expert_tier, "
             "repro_torch.benchmarks.traffic_bench, repro_torch.benchmarks.expert_tiering, "
             "repro_torch.fleet, repro_torch.core.simulator, "
-            "repro_torch.benchmarks.fleet_bench; "
+            "repro_torch.benchmarks.fleet_bench, repro_torch.launch.train, "
+            "repro_torch.optim.offload, repro_torch.checkpoint, repro_torch.data; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax')); "
             "assert not any(m == 'repro' or m.startswith('repro.') "
