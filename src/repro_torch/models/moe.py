@@ -83,7 +83,9 @@ def moe_fwd(p: Params, cfg: MoeConfig, x: torch.Tensor,
 
     C = capacity if capacity is not None else max(
         1, int(cfg.capacity_factor * T * K / E))
-    r = kernel_ops.moe_route(xt.float(), p["router"]["w"], K, C, impl=impl)
+    # float32 activations against the router weight in float32, as JAX's
+    # promotion of a float32 x and a bfloat16 w (repro/models/moe.py:90)
+    r = kernel_ops.moe_route(xt.float(), p["router"]["w"].float(), K, C, impl=impl)
     xe = kernel_ops.moe_dispatch(xt, r.src, E, C, impl=impl, slot=r.slot)  # (E, C, d)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * torch.einsum(

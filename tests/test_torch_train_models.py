@@ -257,6 +257,33 @@ def test_moe_fwd_gradients_match_jax(case):
     assert bool((r.slot == E * C).any()) == (case != "drop-free")
 
 
+def test_moe_loss_with_bfloat16_router_matches_jax():
+    """Every leaf in bfloat16, the router's too (``cast_tree`` casts every
+    floating leaf): JAX's ``nn.dense`` promotes the float32 activations
+    and the bfloat16 router weight to float32, and the port's ``moe_fwd``
+    routes in float32 as well.  Labels are the tokens, as in
+    ``tests/test_models.py``'s ``make_batch``: 1.1e-5 apart here.  The two
+    frameworks round bfloat16 intermediates in other places, so with
+    labels drawn apart from the tokens the losses are 3.6e-4 apart."""
+    arch = "phi3.5-moe-42b-a6.6b"
+    jcfg = jax_smoke_config(arch)
+    jp = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16),
+                                jmodel.init_params(jax.random.PRNGKey(0), jcfg))
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 16)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    lj, _ = jax.jit(lambda p, b: jmodel.loss_fn(p, jcfg, b))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    # the leaves reach the port as float32 numpy arrays (exact: each is a
+    # bfloat16 value) and are cast back
+    tp = tmodel.params_from_jax(
+        jax.tree_util.tree_map(lambda x: np.asarray(x.astype(jnp.float32)), jp),
+        device="cpu", dtype=torch.bfloat16)
+    assert tp["stacks"][0]["blocks"][0]["moe"]["router"]["w"].dtype == torch.bfloat16
+    lt, _ = tmodel.loss_fn(tp, get_smoke_config(arch),
+                           {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert abs(float(lt) - float(lj)) <= 1e-4, (float(lt), float(lj))
+
+
 def test_moe_functions_equal_plain_autograd():
     """The Functions' hand-written backward against autograd through the
     plain versions' own torch ops, on the same route."""
