@@ -164,6 +164,29 @@ rates, and 2 traced steps; full-width phi3.5-moe cut to 2 of 32 layers,
 4 steps at B=8, S=256 with exact launches (route, dispatch and combine
 once an MoE layer a forward, the combine once more and
 ``moe_combine_bwd`` once an MoE layer a backward) and 2 traced steps.
+deepseek-v2-lite-16b's smoke config joins the cuda-vs-cpu training.
+
+Then (``[decode]``) the model's own decode, with every earlier model
+freed: ``moe_route``, ``moe_dispatch`` and ``moe_combine`` at
+deepseek-v2-lite's decode shapes (T=2 and 8 rows, d=2048, E=64, k=6,
+C=1) against their plain versions and timed; full-width
+deepseek-v2-lite-16b (27 layers, 15.71 G parameters, 62.8 GB, refused by
+``check_fits`` if it does not fit) through ``launch/generate.py``: 2
+prompts of 64 tokens fed one a step through ``decode_step``, 16 greedy
+tokens and one scoring ``forward`` at the published capacity factor
+1.25 (C=1 at decode: tokens drop), tokens well formed, logits finite,
+route/dispatch/combine exactly 26 × (decode steps + 1) and no other
+launch, ms per step, 8 traced steps (busy, idle, launches, top ops) and
+peak GiB; on a drop-free variant of the same weights (capacity factor
+E / k, so C >= T in the forward and at decode) the forward over the 2 ×
+64 prompt against 64 teacher-forced steps of MLA's absorbed decode,
+logits within ``FWD_DECODE_REL`` of their largest magnitude, argmax
+equal but at a top-2 gap below ``NEAR_TIE``; ``decode_step`` of all
+eight smoke configs cuda vs cpu over 10 steps, and gemma3's over 20 (its
+rolling window buffer wraps), logits and states within
+``DECODE_SMOKE_TOL``; deepseek cut to its dense layer and one MoE layer
+(1.085 G parameters) through ``train_loop``, 4 steps at B=8, S=256,
+launches exact.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -947,6 +970,114 @@ def route_cases(torch, gen, d, E, k, factor):
     return cases
 
 
+ROUTE_TOL = 1e-6  # the route's probs, gates and aux against the plain routing
+
+
+def check_route_case(torch, gen, name, x, w, k, C):
+    """One route case on the card against the plain routing on the
+    kernel's own logits, and the dispatch and combine at its routing
+    against their plain versions → ``(result, ok, glue)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import router_topk as rt
+
+    tol = ROUTE_TOL
+    got = ops.moe_route(x, w, k, C, impl="kernel")
+    again = ops.moe_route(x, w, k, C, impl="kernel")
+    torch.cuda.synchronize()
+    want = rt.route_logits_plain(got.logits, k, C)
+    mm = torch.mm(x, w)
+    torch.cuda.synchronize()
+    lerr = (got.logits - mm).abs().max().item()
+    err = max((got.probs - want.probs).abs().max().item(),
+              (got.vals - want.vals).abs().max().item())
+    aux_err = abs(float(got.aux) - float(want.aux))
+    exact = {f: torch.equal(getattr(got, f), getattr(want, f).to(torch.int32))
+             for f in ("idx", "slot", "src", "counts")}
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    dropped = int((got.counts - C).clamp_min(0).sum())
+    ok = (all(exact.values()) and same and err <= tol and aux_err <= tol
+          and bool(torch.isfinite(got.logits).all()) and torch.allclose(
+              got.logits, mm, atol=TOL["float32"], rtol=TOL["float32"]))
+    if name.startswith("exact ties"):
+        ok &= got.idx.tolist() == [[0, 1, 2]] * 3 + [tie_experts(w.shape[1])] * 5
+    Ek = w.shape[1]
+    xe = ops.moe_dispatch(x, got.src, Ek, C, impl="kernel")
+    ye = torch.randn((Ek, C, x.shape[1]), generator=gen, device="cuda")
+    y = ops.moe_combine(ye, got.slot, got.vals, impl="kernel")
+    torch.cuda.synchronize()
+    glue = {"dispatch": torch.equal(xe, ops.moe_dispatch(x, got.src, Ek, C, impl="ref")),
+            "combine": torch.equal(y, ops.moe_combine(ye, got.slot, got.vals, impl="ref"))}
+    res = dict(capacity=C, dropped=dropped, logits_max_abs_err=lerr, max_abs_err=err,
+               aux_abs_err=aux_err, equal=exact, rerun_bit_identical=same, **glue)
+    return res, ok, glue
+
+
+def route_times(torch, flush, x, w, k, C):
+    """The fused route, its plain version, the unfused chain it replaces
+    and ``torch.mm`` of the router product, timed, with the bound."""
+    from repro_torch.kernels import router_topk as rt
+
+    T, dd = x.shape
+    Ek = w.shape[1]
+    nbytes = 4 * (T * dd + dd * Ek + 2 * T * Ek + 3 * T * k + Ek * C + Ek + 1)
+    b_ms, b_by = bound(nbytes, 2.0 * T * dd * Ek)
+    return dict(
+        kernel_ms=time_ms(torch, lambda: rt.moe_route(x, w, k, C), flush),
+        plain_ms=time_ms(torch, lambda: rt.moe_route_plain(x, w, k, C), flush),
+        # the unfused chain: the product, the router_topk kernel, and the
+        # torch lines of the slots, src and aux
+        unfused_chain_ms=time_ms(torch, lambda: rt.route_logits_plain(
+            torch.mm(x, w), k, C, topk=rt.router_topk), flush),
+        library_ms=time_ms(torch, lambda: torch.mm(x, w), flush),
+        library_call="torch.mm (the router product alone)",
+        bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=2.0 * T * dd * Ek)
+
+
+def glue_times(torch, gen, flush, x, w, k, C):
+    """``moe_dispatch`` and ``moe_combine`` at the route of ``(x, w, k,
+    C)``, their plain versions and the torch lines they replace, timed,
+    with their bounds."""
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import router_topk as rt
+
+    T, dd = x.shape
+    Ek = w.shape[1]
+    r = rt.moe_route(x, w, k, C)
+    ye = torch.randn((Ek, C, dd), generator=gen, device="cuda")
+    src, slot, vals = r.src, r.slot, r.vals
+    slot_l = slot.long()
+    kept = int((src >= 0).sum())
+    rows = int(torch.unique(src[src >= 0]).numel())
+
+    def dispatch_lines():  # the torch lines moe_dispatch replaces
+        xe = torch.zeros((Ek * C + 1, dd), device="cuda")
+        xe.index_add_(0, slot_l, x.repeat_interleave(k, dim=0))
+        return xe[:Ek * C].reshape(Ek, C, dd)
+
+    def combine_lines():  # the torch lines moe_combine replaces
+        ye_flat = torch.cat([ye.reshape(Ek * C, dd), ye.new_zeros((1, dd))], dim=0)
+        yk = ye_flat[slot_l].reshape(T, k, dd)
+        return torch.sum(yk * vals[..., None], dim=1)
+
+    d_bytes = 4 * (rows * dd + Ek * C + Ek * C * dd)
+    c_bytes = 4 * (kept * dd + 2 * T * k + T * dd)
+    db_ms, db_by = bound(d_bytes, 0.0)
+    cb_ms, cb_by = bound(c_bytes, 2.0 * T * k * dd)
+    return {
+        "moe_dispatch": dict(
+            kernel_ms=time_ms(torch, lambda: md.moe_dispatch(x, src, Ek, C), flush),
+            plain_ms=time_ms(torch, lambda: md.moe_dispatch_plain(x, src, Ek, C), flush),
+            replaced_lines_ms=time_ms(torch, dispatch_lines, flush),
+            library_ms=None, bound_ms=db_ms, bound_by=db_by, bound_bytes=d_bytes),
+        "moe_combine": dict(
+            kernel_ms=time_ms(torch, lambda: md.moe_combine(ye, slot, vals), flush),
+            plain_ms=time_ms(torch, lambda: md.moe_combine_plain(ye, slot, vals), flush),
+            replaced_lines_ms=time_ms(torch, combine_lines, flush),
+            library_ms=None, bound_ms=cb_ms, bound_by=cb_by, bound_bytes=c_bytes,
+            bound_flops=2.0 * T * k * dd),
+    }
+
+
 def check_moe_route(torch, gen, cfg, flush, fails):
     """The fused route, dispatch and combine on the card against their
     plain versions.  ``idx``, ``slot``, ``src`` and ``counts`` exactly
@@ -957,53 +1088,21 @@ def check_moe_route(torch, gen, cfg, flush, fails):
     for bit, the counters back at zero; dispatch and combine exactly
     equal to their plain versions.  Returns the three kernels' rows."""
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import router_topk as rt
 
     mcfg = cfg.all_specs()[0].moe
     d, E, K = cfg.d_model, mcfg.n_experts, mcfg.top_k
     cases = route_cases(torch, gen, d, E, K, mcfg.capacity_factor)
-    tol = 1e-6
+    tol = ROUTE_TOL
     errs, lerrs, out = [], [], {}
     for name, x, w, k, C in cases:
-        got = ops.moe_route(x, w, k, C, impl="kernel")
-        again = ops.moe_route(x, w, k, C, impl="kernel")
-        torch.cuda.synchronize()
-        want = rt.route_logits_plain(got.logits, k, C)
-        mm = torch.mm(x, w)
-        torch.cuda.synchronize()
-        lerr = (got.logits - mm).abs().max().item()
-        err = max((got.probs - want.probs).abs().max().item(),
-                  (got.vals - want.vals).abs().max().item())
-        aux_err = abs(float(got.aux) - float(want.aux))
-        exact = {f: torch.equal(getattr(got, f), getattr(want, f).to(torch.int32))
-                 for f in ("idx", "slot", "src", "counts")}
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        dropped = int((got.counts - C).clamp_min(0).sum())
-        ok = (all(exact.values()) and same and err <= tol and aux_err <= tol
-              and bool(torch.isfinite(got.logits).all()) and torch.allclose(
-                  got.logits, mm, atol=TOL["float32"], rtol=TOL["float32"]))
-        if name.startswith("exact ties"):
-            ok &= got.idx.tolist() == [[0, 1, 2]] * 3 + [tie_experts(w.shape[1])] * 5
-        errs.append(err)
-        lerrs.append(lerr)
-        # dispatch and combine at this case's routing
-        Ek = w.shape[1]
-        xe = ops.moe_dispatch(x, got.src, Ek, C, impl="kernel")
-        ye = torch.randn((Ek, C, x.shape[1]), generator=gen, device="cuda")
-        y = ops.moe_combine(ye, got.slot, got.vals, impl="kernel")
-        torch.cuda.synchronize()
-        glue = {"dispatch": torch.equal(xe, ops.moe_dispatch(x, got.src, Ek, C, impl="ref")),
-                "combine": torch.equal(y, ops.moe_combine(ye, got.slot, got.vals,
-                                                          impl="ref"))}
-        out[name] = dict(capacity=C, dropped=dropped, logits_max_abs_err=lerr,
-                         max_abs_err=err, aux_abs_err=aux_err, equal=exact,
-                         rerun_bit_identical=same, **glue)
+        out[name], ok, glue = check_route_case(torch, gen, name, x, w, k, C)
+        errs.append(out[name]["max_abs_err"])
+        lerrs.append(out[name]["logits_max_abs_err"])
         if not ok:
             fails.append(f"moe_route {name}: {out[name]}")
         if not all(glue.values()):
             fails.append(f"moe_dispatch/moe_combine {name}: {glue}")
-        del xe, ye, y
     try:  # refused before it runs: the counters stay as they are
         ops.moe_route(cases[0][1], cases[0][2], 9, 1, impl="kernel")
         fails.append("moe_route took k=9")
@@ -1018,68 +1117,13 @@ def check_moe_route(torch, gen, cfg, flush, fails):
     by = {n: (x, w, k, C) for n, x, w, k, C in cases}
     timed_cases = {"decode": cases[0][0], "prefill": cases[1][0],
                    "deepseek_v2_lite": cases[-1][0]}
-
-    def route_times(x, w, k, C):
-        T, dd = x.shape
-        Ek = w.shape[1]
-        nbytes = 4 * (T * dd + dd * Ek + 2 * T * Ek + 3 * T * k + Ek * C + Ek + 1)
-        b_ms, b_by = bound(nbytes, 2.0 * T * dd * Ek)
-        return dict(
-            kernel_ms=time_ms(torch, lambda: rt.moe_route(x, w, k, C), flush),
-            plain_ms=time_ms(torch, lambda: rt.moe_route_plain(x, w, k, C), flush),
-            # the unfused chain: the product, the router_topk kernel, and the
-            # torch lines of the slots, src and aux
-            unfused_chain_ms=time_ms(torch, lambda: rt.route_logits_plain(
-                torch.mm(x, w), k, C, topk=rt.router_topk), flush),
-            library_ms=time_ms(torch, lambda: torch.mm(x, w), flush),
-            library_call="torch.mm (the router product alone)",
-            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=2.0 * T * dd * Ek)
-
-    def glue_times(x, w, k, C):
-        T, dd = x.shape
-        Ek = w.shape[1]
-        r = rt.moe_route(x, w, k, C)
-        ye = torch.randn((Ek, C, dd), generator=gen, device="cuda")
-        src, slot, vals = r.src, r.slot, r.vals
-        slot_l = slot.long()
-        kept = int((src >= 0).sum())
-        rows = int(torch.unique(src[src >= 0]).numel())
-
-        def dispatch_lines():  # the torch lines moe_dispatch replaces
-            xe = torch.zeros((Ek * C + 1, dd), device="cuda")
-            xe.index_add_(0, slot_l, x.repeat_interleave(k, dim=0))
-            return xe[:Ek * C].reshape(Ek, C, dd)
-
-        def combine_lines():  # the torch lines moe_combine replaces
-            ye_flat = torch.cat([ye.reshape(Ek * C, dd), ye.new_zeros((1, dd))], dim=0)
-            yk = ye_flat[slot_l].reshape(T, k, dd)
-            return torch.sum(yk * vals[..., None], dim=1)
-
-        d_bytes = 4 * (rows * dd + Ek * C + Ek * C * dd)
-        c_bytes = 4 * (kept * dd + 2 * T * k + T * dd)
-        db_ms, db_by = bound(d_bytes, 0.0)
-        cb_ms, cb_by = bound(c_bytes, 2.0 * T * k * dd)
-        return {
-            "moe_dispatch": dict(
-                kernel_ms=time_ms(torch, lambda: md.moe_dispatch(x, src, Ek, C), flush),
-                plain_ms=time_ms(torch, lambda: md.moe_dispatch_plain(x, src, Ek, C), flush),
-                replaced_lines_ms=time_ms(torch, dispatch_lines, flush),
-                library_ms=None, bound_ms=db_ms, bound_by=db_by, bound_bytes=d_bytes),
-            "moe_combine": dict(
-                kernel_ms=time_ms(torch, lambda: md.moe_combine(ye, slot, vals), flush),
-                plain_ms=time_ms(torch, lambda: md.moe_combine_plain(ye, slot, vals), flush),
-                replaced_lines_ms=time_ms(torch, combine_lines, flush),
-                library_ms=None, bound_ms=cb_ms, bound_by=cb_by, bound_bytes=c_bytes,
-                bound_flops=2.0 * T * k * dd),
-        }
-
-    route_t = {key: route_times(*by[n]) for key, n in timed_cases.items()}
+    route_t = {key: route_times(torch, flush, *by[n]) for key, n in timed_cases.items()}
     # the decode route with L2 warm (no flush): the launch's serial tail
     # runs in one block, and a cold L2 holds neither its data nor its code
     x, w, k, C = by[timed_cases["decode"]]
     route_t["decode"]["warm_l2_ms"] = time_ms(
         torch, lambda: rt.moe_route(x, w, k, C), torch.ones(1, device="cuda"))
-    glue_t = {key: glue_times(*by[n]) for key, n in timed_cases.items()}
+    glue_t = {key: glue_times(torch, gen, flush, *by[n]) for key, n in timed_cases.items()}
     rows = [{
         "name": "moe_route", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/router_topk.cu",
@@ -1479,6 +1523,8 @@ def main() -> None:
         })
     # ---------------- [train]: the training path ---------------------- #
     launches_by_path.update(train_phase(torch, moe_full, smi, rows))
+    # ---------------- [decode]: decode_step, MLA, deepseek-v2-lite ----- #
+    launches_by_path.update(decode_phase(torch, smi, rows))
 
     for r in rows:
         log(f"[kernels] {r['name']}: max_abs_err {r['max_abs_err']} "
@@ -2481,7 +2527,9 @@ def expected_train_launches(moe_layers, forwards, backwards):
     """A training run's MoE launches: route, dispatch and combine once an
     MoE layer a forward (remat runs each block's forward again in
     backward), the combine once more (the dispatch's backward) and
-    ``moe_combine_bwd`` once an MoE layer a backward; nothing else."""
+    ``moe_combine_bwd`` once an MoE layer a backward; nothing else.  A
+    decode run is ``forwards`` forwards or ``decode_step``s and no
+    backward (no paged attention, flash kernel or copy either)."""
     f, b = moe_layers * forwards, moe_layers * backwards
     return {"paged_attention": 0, "page_gather": 0, "page_scatter": 0, "router_topk": 0,
             "flash_attention": 0, "moe_route": f, "moe_dispatch": f,
@@ -3021,7 +3069,7 @@ def train_phase(torch, moe_full, smi, rows):
     if fails:
         fail("; ".join(fails))
     launches = {}
-    for arch in ("tinyllama-1.1b", MOE_ARCH) + FAMILIES:
+    for arch in ("tinyllama-1.1b", MOE_ARCH) + FAMILIES + (DEEPSEEK,):
         launches[f"train smoke/{arch}"] = train_smoke_phase(torch, arch, fails)
     if fails:
         fail("; ".join(fails))
@@ -3032,6 +3080,317 @@ def train_phase(torch, moe_full, smi, rows):
     launches[f"train/{MOE_ARCH} ({layers} layers)"] = moe_launches
     if fails:
         fail("; ".join(fails))
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# [decode]: decode_step, MLA and deepseek-v2-lite-16b
+# --------------------------------------------------------------------- #
+DEEPSEEK = "deepseek-v2-lite-16b"
+# greedy generation at full width: 2 requests, 64 prompt tokens fed one a
+# step, then 16 greedy tokens
+DECODE = {"requests": 2, "prompt_len": 64, "max_new": 16}
+DECODE_PROFILE_STEPS = 8
+# forward against teacher-forced decode at full width, drop-free: logits
+# within FWD_DECODE_REL of the forward's largest magnitude (27 layers of
+# float32 sums in other orders: the absorbed MLA decode against the
+# expanded forward), argmax equal but where the forward's top two logits
+# are closer than NEAR_TIE
+FWD_DECODE_REL = 1e-3
+DECODE_SMOKE_TOL = 2e-5  # cuda vs cpu at smoke size: logits and states
+DECODE_SMOKE = {"steps": 10, "batch": 2}
+# gemma3's smoke window is 8: 20 steps wrap its rolling buffer twice
+WINDOW_WRAP = {"arch": "gemma3-4b", "steps": 20, "batch": 1}
+# deepseek training on one card: layer 0 (dense) and one of the 26 MoE
+# layers at published widths, 1.09 G parameters
+TRAIN_DEEPSEEK_STACKS = (1, 1)
+TRAIN_DEEPSEEK_STEPS = 4
+
+
+def moe_layer_count(cfg) -> int:
+    return sum(1 for s in cfg.all_specs() if s.moe is not None)
+
+
+def with_capacity_factor(cfg, factor):
+    """``cfg`` with every MoE block's capacity factor set to ``factor``."""
+    stacks = tuple(
+        (tuple(dataclasses.replace(s, moe=dataclasses.replace(s.moe, capacity_factor=factor))
+               if s.moe is not None else s for s in pat), reps)
+        for pat, reps in cfg.stacks)
+    return dataclasses.replace(cfg, stacks=stacks)
+
+
+def decode_kernels(torch, cfg, flush, fails, rows):
+    """``moe_route``, ``moe_dispatch`` and ``moe_combine`` at deepseek's
+    decode shapes (T = 2 and 8 rows, C = 1: tokens drop) against their
+    plain versions, as phase 2 checks them, and timed beside their bounds
+    and ``torch.mm`` of the router product; the timings go into the three
+    rows."""
+    mcfg = next(s.moe for s in cfg.all_specs() if s.moe is not None)
+    d, E, K = cfg.d_model, mcfg.n_experts, mcfg.top_k
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    w = torch.randn((d, E), generator=gen, device="cuda") * 0.02  # as init_moe
+    by_name = {r["name"]: r for r in rows}
+    for T in (2, 8):
+        x = torch.randn((T, d), generator=gen, device="cuda")
+        C = max(1, int(mcfg.capacity_factor * T * K / E))
+        name = f"deepseek-v2-lite decode T={T} d={d} E={E} k={K} C={C}"
+        res, ok, glue = check_route_case(torch, gen, name, x, w, K, C)
+        if not ok or not all(glue.values()):
+            fails.append(f"moe kernels {name}: {res}")
+        key = f"deepseek_v2_lite_decode_T{T}"
+        by_name["moe_route"][key] = dict(route_times(torch, flush, x, w, K, C), checks=res)
+        for kname, t in glue_times(torch, gen, flush, x, w, K, C).items():
+            by_name[kname][key] = t
+        by_name["moe_route"]["max_abs_err"] = max(by_name["moe_route"]["max_abs_err"],
+                                                  res["max_abs_err"])
+        log(f"[decode] moe kernels at {name}: {json.dumps(res)}")
+
+
+def greedy_decode_run(torch, cfg, params, smi, fails):
+    """Greedy generation through ``generate`` (``decode_step`` one token a
+    step, then one scoring ``forward``) with the launch counts set to 0
+    just before and read just after; then a profile of
+    ``DECODE_PROFILE_STEPS`` decode steps.  Returns the counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.generate import generate, make_prompts, profile_decode_steps
+    from repro_torch.models.model import init_decode_state
+
+    L = moe_layer_count(cfg)
+    prompts = make_prompts(cfg, DECODE["requests"], DECODE["prompt_len"], seed=0,
+                           device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = generate(cfg, params, prompts, DECODE["max_new"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    if (tuple(toks.shape) != (DECODE["requests"], DECODE["max_new"])
+            or not bool(((toks >= 0) & (toks < cfg.vocab)).all())):
+        fails.append(f"decode {DEEPSEEK}: malformed tokens {toks.tolist()}")
+    if not (res["logits_finite"] and res["score_finite"]):
+        fails.append(f"decode {DEEPSEEK}: logits not finite")
+    want = expected_train_launches(L, res["steps"] + 1, 0)
+    check_train_launches(f"decode {DEEPSEEK}", launches, want, fails)
+    states = init_decode_state(cfg, DECODE["requests"],
+                               DECODE["prompt_len"] + DECODE["max_new"], device="cuda")
+    prof = profile_decode_steps(cfg, params, states, prompts[:, :1], 0, DECODE_PROFILE_STEPS,
+                                str(ROOT / "build" / "profile" / "decode_deepseek"))
+    secs = res["step_seconds"]
+    summary = {
+        "arch": DEEPSEEK, "layers": cfg.n_layers, **DECODE, "decode_steps": res["steps"],
+        "tokens": toks.tolist(), "score_nll": res["score_nll"],
+        "prompt_ms_per_step_median": res["prompt_ms_per_step"],
+        "generate_ms_per_step_median": res["generate_ms_per_step"],
+        "ms_per_step_mean_after_first": 1e3 * sum(secs[1:]) / len(secs[1:]),
+        "first_step_ms": 1e3 * secs[0],
+        "peak_device_memory_GiB": peak / 2**30, "launches": launches,
+        "profile": prof, "card": smi}
+    log(f"[decode] {DEEPSEEK} greedy {json.dumps(summary)}")
+    del states
+    return launches
+
+
+def fwd_vs_decode_run(torch, cfg, params, fails):
+    """On a drop-free variant of ``cfg`` (capacity factor E / k: every
+    expert takes every row, C >= T in the forward and at decode), the
+    forward over the prompts against ``prompt_len`` teacher-forced
+    ``decode_step``s, held to ``FWD_DECODE_REL`` and ``NEAR_TIE``.
+    Returns the launch counts of the forward and the steps."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.generate import make_prompts
+    from repro_torch.models.model import decode_step, forward, init_decode_state
+
+    mcfg = next(s.moe for s in cfg.all_specs() if s.moe is not None)
+    free = with_capacity_factor(cfg, mcfg.n_experts / mcfg.top_k)
+    factor = next(s.moe for s in free.all_specs() if s.moe is not None).capacity_factor
+    B, P = DECODE["requests"], DECODE["prompt_len"]
+    # C as moe_fwd computes it, for the decode's T = B and the forward's B·P
+    caps = {T: max(1, int(factor * T * mcfg.top_k / mcfg.n_experts)) for T in (B, B * P)}
+    if any(c < T for T, c in caps.items()):
+        fails.append(f"fwd vs decode: capacity {caps} drops tokens")
+    prompts = make_prompts(cfg, B, P, seed=1, device="cuda")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        full, _ = forward(params, free, prompts)
+        states = init_decode_state(free, B, P, device="cuda")
+        steps = []
+        for t in range(P):
+            cur = torch.full((B,), t, dtype=torch.int32, device="cuda")
+            lg, states = decode_step(params, free, prompts[:, t:t + 1], states, cur)
+            steps.append(lg)
+        dec = torch.cat(steps, dim=1)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_train_launches(f"fwd vs decode {DEEPSEEK}", launches,
+                         expected_train_launches(moe_layer_count(cfg), P + 1, 0), fails)
+    scale = full.abs().max().item()
+    err = (full - dec).abs().max().item()
+    top2 = full.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1])
+    differ = full.argmax(-1) != dec.argmax(-1)
+    gaps = gap[differ].tolist()
+    res = {"capacity_factor": factor, "capacity": caps,
+           "max_abs_err": err, "max_abs_logit": scale, "rel_err": err / scale,
+           "tolerance_rel": FWD_DECODE_REL, "argmax_differ": len(gaps),
+           "top2_gaps_where_argmax_differs": gaps, "near_tie": NEAR_TIE,
+           "finite": bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
+           "launches": launches}
+    if not (res["finite"] and err <= FWD_DECODE_REL * scale
+            and all(g < NEAR_TIE for g in gaps)):
+        fails.append(f"fwd vs decode {DEEPSEEK}: {res}")
+    log(f"[decode] {DEEPSEEK} drop-free forward vs decode {json.dumps(res)}")
+    del full, dec, states, steps
+    return launches
+
+
+def decode_smoke_run(torch, arch, steps, batch, fails):
+    """``decode_step`` of ``arch``'s smoke config teacher-forced over
+    ``steps`` tokens on the card and on the CPU from the same weights:
+    every step's logits and the final states within
+    ``DECODE_SMOKE_TOL``, the MoE launches exact.  Returns the card's
+    counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import nn
+    from repro_torch.models.model import decode_step, init_decode_state, init_params
+
+    cfg = get_smoke_config(arch)
+    cpu_p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    shape = (batch, steps) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, shape)
+                            .astype(np.int32))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(cpu_p, dev)
+        st = init_decode_state(cfg, batch, steps + 2, device=dev)
+        t_dev = toks.to(dev)
+        ops.reset_launch_counts()
+        outs = []
+        for t in range(steps):
+            cur = torch.full((batch,), t, dtype=torch.int32, device=dev)
+            lg, st = decode_step(p, cfg, t_dev[:, t:t + 1], st, cur)
+            outs.append(lg.cpu())
+        runs[dev] = (torch.cat(outs, dim=1), nn.tree_leaves(tree_to(st, "cpu")),
+                     ops.launch_counts())
+    (l0, s0, _), (l1, s1, launches) = runs["cpu"], runs["cuda"]
+    tol = DECODE_SMOKE_TOL
+    lerr = (l0 - l1).abs().max().item()
+    serr = max((a - b).abs().max().item() for a, b in zip(s0, s1))
+    ok = (torch.allclose(l1, l0, atol=tol, rtol=tol)
+          and all(torch.allclose(b, a, atol=tol, rtol=tol) for a, b in zip(s0, s1)))
+    res = {"arch": arch, "steps": steps, "batch": batch, "logits_max_abs_err": lerr,
+           "states_max_abs_err": serr, "tolerance": tol}
+    if not ok:
+        fails.append(f"decode smoke {arch}: cuda != cpu {res}")
+    check_train_launches(f"decode smoke {arch} ({steps} steps)", launches,
+                         expected_train_launches(moe_layer_count(cfg), steps, 0), fails)
+    log(f"[decode] smoke cuda vs cpu {json.dumps(res)}")
+    return launches
+
+
+def train_deepseek_run(torch, full, smi, fails):
+    """deepseek-v2-lite at published widths cut to its dense layer 0 and
+    one MoE layer, ``TRAIN_DEEPSEEK_STEPS`` steps of ``train_loop`` at
+    B=8, S=256: finite losses, none skipped, the MoE launches exact."""
+    import statistics
+
+    from repro_torch import optim
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import param_bytes
+
+    cfg = dataclasses.replace(full, stacks=tuple(
+        (pat, n) for (pat, _), n in zip(full.stacks, TRAIN_DEEPSEEK_STACKS)))
+    n_params = param_bytes(cfg) // 4
+    mcfg = cfg.stacks[1][0][0].moe
+    expert = 3 * mcfg.n_experts * cfg.d_model * mcfg.d_ff_expert
+    active = n_params - expert + expert * mcfg.top_k // mcfg.n_experts
+    log(f"[train] {DEEPSEEK}: depth cut from {full.n_layers} to {cfg.n_layers} layers "
+        f"(layer 0 dense, one MoE layer; {n_params / 1e9:.3f} G parameters), widths "
+        "as published")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = train_loop(cfg, DataConfig(**TRAIN_DATA), optim.AdamWConfig(),
+                     steps=TRAIN_DEEPSEEK_STEPS, warmup=TRAIN_WARMUP, log_every=0,
+                     device="cuda")
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_DATA["seq_len"] * TRAIN_DATA["global_batch"]
+    med = statistics.median(rep.step_seconds)
+    res = {"arch": DEEPSEEK, "layers": cfg.n_layers, "params": n_params,
+           "active_params": active, "batch": TRAIN_DATA, "steps": rep.steps_run,
+           "losses": rep.losses, "step_seconds": rep.step_seconds,
+           "median_ms_per_step": med * 1e3, "tokens_per_s": tokens / med,
+           "fp32_peak_share_active": 6.0 * active * tokens / med / PEAK_FLOPS["float32"],
+           "peak_device_memory_GiB": peak / 2**30, "skipped": rep.skipped,
+           "launches": launches, "card": smi}
+    log(f"[train] {DEEPSEEK} {json.dumps(res)}")
+    if rep.skipped or not all(math.isfinite(v) for v in rep.losses):
+        fails.append(f"train {DEEPSEEK}: losses {rep.losses}, skipped {rep.skipped}")
+    check_train_launches(f"train {DEEPSEEK}", launches,
+                         expected_train_launches(1, TRAIN_DEEPSEEK_STEPS,
+                                                 TRAIN_DEEPSEEK_STEPS), fails)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def decode_phase(torch, smi, rows):
+    """The [decode] phase: deepseek's MoE kernels at its decode shapes;
+    full-width deepseek-v2-lite-16b through ``decode_step`` (greedy, a
+    profile, the drop-free forward against decode); every ported arch's
+    smoke decode cuda vs cpu (gemma3's rolling buffer wrapped); deepseek
+    trained cut to 2 layers.  Returns each run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import check_fits
+    from repro_torch.models.model import init_params, param_bytes
+
+    t0 = time.perf_counter()
+    fails: list = []
+    cfg = get_config(DEEPSEEK)
+    flush = torch.ones(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    decode_kernels(torch, cfg, flush, fails, rows)
+    del flush
+    if fails:
+        fail("; ".join(fails))
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_fits(cfg, "cuda")  # refuses, rather than cuts, a model that does not fit
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[decode] {DEEPSEEK} full width: {cfg.n_layers} layers, d={cfg.d_model}, params "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G float32 "
+        f"({param_bytes(cfg) / 1e9:.1f} GB), built in {time.perf_counter() - t1:.1f} s")
+    launches = {f"decode/{DEEPSEEK}": greedy_decode_run(torch, cfg, params, smi, fails)}
+    if fails:
+        fail("; ".join(fails))
+    launches[f"decode/{DEEPSEEK} drop-free fwd vs decode"] = fwd_vs_decode_run(
+        torch, cfg, params, fails)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fails:
+        fail("; ".join(fails))
+    for arch in ("tinyllama-1.1b", MOE_ARCH) + FAMILIES + (DEEPSEEK,):
+        launches[f"decode smoke/{arch}"] = decode_smoke_run(torch, arch, fails=fails,
+                                                            **DECODE_SMOKE)
+    wrap = dict(WINDOW_WRAP)
+    arch = wrap.pop("arch")
+    launches[f"decode smoke/{arch} (rolling)"] = decode_smoke_run(torch, arch, fails=fails,
+                                                                  **wrap)
+    if fails:
+        fail("; ".join(fails))
+    launches[f"train/{DEEPSEEK} (2 layers)"] = train_deepseek_run(torch, cfg, smi, fails)
+    if fails:
+        fail("; ".join(fails))
+    log(f"[decode] phase took {time.perf_counter() - t0:.1f} s")
     return launches
 
 

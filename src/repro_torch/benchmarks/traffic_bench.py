@@ -155,11 +155,11 @@ def run(quick: bool = False, arch: str = MODEL, smoke: bool = False,
 if __name__ == "__main__":
     import argparse
 
-    from repro_torch.configs import list_archs
+    from repro_torch.configs import served_archs
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="24 requests, not 56")
-    ap.add_argument("--arch", default=MODEL, choices=list_archs())
+    ap.add_argument("--arch", default=MODEL, choices=served_archs())
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", metavar="PATH", help="write the JSON results here")

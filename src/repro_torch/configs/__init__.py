@@ -5,10 +5,11 @@ Counterpart of ``repro/configs/__init__.py``.  Each module exports
 variant of the same family for CPU tests).  Ported: the seven
 architectures the JAX ``ServingEngine`` pages (GQA or MHA attention):
 tinyllama-1.1b, gemma3-4b, phi3-medium-14b, chatglm3-6b, qwen2-vl-2b,
-musicgen-medium (dense FFNs) and phi3.5-moe-42b-a6.6b (MoE).  The three
-the JAX engine does not serve (deepseek-v2-lite-16b, MLA; zamba2-2.7b and
-xlstm-350m, recurrent mixers) belong to ROADMAP Queue 1 item 7's next
-slice, "MLA and the SSM mixers", and raise ``NotImplementedError`` here.
+musicgen-medium (dense FFNs) and phi3.5-moe-42b-a6.6b (MoE), and
+deepseek-v2-lite-16b (MLA and MoE), which both engines refuse and which
+trains and decodes through ``decode_step``: :func:`served_archs` lists
+the seven.  zamba2-2.7b and xlstm-350m (recurrent mixers) belong to
+ROADMAP Queue 1 item 7b and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ ALIASES: Dict[str, str] = {
     "qwen2-vl-2b": "qwen2_vl_2b",
     "musicgen-medium": "musicgen_medium",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 
@@ -32,7 +34,8 @@ def _module(name: str):
     if mod not in ALIASES.values():
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (have {list(ALIASES)}); "
-            "see ROADMAP Queue 1 item 7, 'MLA and the SSM mixers'"
+            "see ROADMAP Queue 1 item 7b, 'MLA and the SSM mixers, part 2: the SSM "
+            "mixers'"
         )
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
@@ -47,3 +50,11 @@ def get_smoke_config(name: str):
 
 def list_archs() -> List[str]:
     return list(ALIASES.keys())
+
+
+def served_archs() -> List[str]:
+    """The archs the serving engine pages: every block GQA or MHA
+    attention (the engine refuses MLA and the recurrent mixers)."""
+    return [name for name in ALIASES
+            if all(s.kind == "attn" and not s.attn.is_mla
+                   for s in get_smoke_config(name).all_specs())]

@@ -11,7 +11,9 @@
 
 ``--arch`` takes each architecture the JAX engine pages: tinyllama-1.1b,
 gemma3-4b, phi3-medium-14b, chatglm3-6b, qwen2-vl-2b, musicgen-medium and
-phi3.5-moe-42b-a6.6b.
+phi3.5-moe-42b-a6.6b (``configs.served_archs``).  deepseek-v2-lite-16b's
+MLA is refused by both engines; it decodes through
+``python -m repro_torch.launch.generate``.
 
 Counterpart of ``repro/launch/serve.py``.  Builds seeded random weights
 on the device, drives :class:`repro_torch.serving.ServingEngine` and
@@ -323,9 +325,9 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    from repro_torch.configs import get_config, get_smoke_config, list_archs
+    from repro_torch.configs import get_config, get_smoke_config, served_archs
 
-    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--arch", required=True, choices=served_archs())
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)

@@ -1,20 +1,26 @@
 """Attention mixers of the port (counterpart of ``repro/models/attention.py``).
 
-GQA and MHA, every rope variant, windowed or not:
+GQA and MHA, every rope variant, windowed or not, and MLA
+(DeepSeek-V2):
 
 * :class:`AttnConfig`, the cos/sin tables and rotation
-  (:func:`make_cos_sin`, :func:`_rotate`) and :func:`init_gqa` for the
-  port's own weights;
-* the training forward: :func:`gqa_fwd` through
+  (:func:`make_cos_sin`, :func:`_rotate`) and :func:`init_attention`
+  (:func:`init_gqa` or :func:`init_mla`) for the port's own weights;
+* the training forward: :func:`gqa_fwd` and :func:`mla_fwd` through
   :func:`chunked_attention`, the online softmax over KV chunks that the
   JAX package runs in XLA (no Pallas kernel backs it, so it stays plain
   torch ops under autograd), dispatched by :func:`attention_fwd`;
+* the dense-cache decode: :func:`gqa_decode` (a full cache, or a rolling
+  buffer of ``window`` slots) and :func:`mla_decode` (the absorbed
+  decode over the ``(c_kv, k_rope)`` latent cache), einsums in XLA in
+  JAX and plain torch ops here.  Each writes the new token's slot into
+  the caches it is given, in place, and returns those same tensors;
 * :func:`reference_attention`, the naive full-score attention, the
   oracle and ``impl="reference"``.
 
 The serving engine's prefill runs the flash kernel
-(``kernels.ops.flash_attention``) instead.  MLA and the dense-cache
-decode are a later slice (ROADMAP Queue 1 item 7).
+(``kernels.ops.flash_attention``) instead; MLA's q/k width (192) is not
+its v width (128), so :func:`mla_fwd` stays on the chunked loop, as JAX.
 """
 
 from __future__ import annotations
@@ -220,10 +226,166 @@ def gqa_fwd(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
     return nn.dense(p["wo"], o.reshape(B, S, H * D))
 
 
+def _cur_lens(cur_len, B: int, device) -> torch.Tensor:
+    """``cur_len`` (an int, a scalar or ``(B,)``) → ``(B,)`` int64 on
+    ``device``: the tokens each sequence already holds in its cache."""
+    cur = torch.as_tensor(cur_len, device=device).to(torch.int64)
+    return cur.reshape(-1).expand(B)
+
+
+def gqa_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, cur_len, positions: torch.Tensor,
+               rolling: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step against a dense KV cache → ``(y, k_cache, v_cache)``
+    (``repro/models/attention.py:236-288``).
+
+    ``x (B, 1, d)``; caches ``(B, S_cache, Hkv, D)``; ``positions (B, 1)``
+    or ``(3, B, 1)``.  The new token's rotated K and V go to slot ``cur``
+    of each sequence (``cur % S_cache`` when ``rolling``: a windowed
+    layer's buffer of ``window`` slots), written in place: the returned
+    caches are the tensors passed in.  Scores in float32 over the valid
+    slots: ``t <= cur`` (and ``t > cur - window``), or with ``rolling``
+    the first ``min(cur + 1, S_cache)`` slots.
+    """
+    B = x.shape[0]
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S_cache = k_cache.shape[1]
+    q = nn.dense(p["wq"], x).reshape(B, 1, H, D)
+    k = nn.dense(p["wk"], x).reshape(B, 1, Hkv, D)
+    v = nn.dense(p["wv"], x).reshape(B, 1, Hkv, D)
+    cos, sin = make_cos_sin(cfg, positions)
+    if cos is not None:
+        q = _rotate(cfg, q, cos, sin)
+        k = _rotate(cfg, k, cos, sin)
+    cur = _cur_lens(cur_len, B, x.device)
+    slot = torch.remainder(cur, S_cache) if rolling else cur
+    bidx = torch.arange(B, device=x.device)
+    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
+
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, D) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
+    t_pos = torch.arange(S_cache, device=x.device)[None, :]
+    if rolling:
+        # the buffer holds exactly the last min(cur + 1, S_cache) tokens
+        valid = t_pos < torch.clamp_max(cur[:, None] + 1, S_cache)
+    else:
+        valid = t_pos <= cur[:, None]
+        if cfg.window is not None:
+            valid = valid & (t_pos > (cur[:, None] - cfg.window))
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgt,bthd->bhgd", pr, v_cache.float())
+    o = o.reshape(B, 1, H * D).to(x.dtype)
+    return nn.dense(p["wo"], o), k_cache, v_cache
+
+
+# ===================================================================== #
+# MLA (DeepSeek-V2)
+# ===================================================================== #
+def init_mla(generator: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
+             device="cuda") -> dict:
+    """The tree of ``repro.models.attention.init_mla``: ``wq`` (no q
+    compression), ``wkv_a`` (to the latent and the shared rope key),
+    ``kv_norm``, ``wkv_b`` (latent to per-head k_nope and v), ``wo``."""
+    d, H = cfg.d_model, cfg.n_heads
+    r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "wq": nn.dense_init(generator, d, H * (dn + dr), **kw),
+        "wkv_a": nn.dense_init(generator, d, r + dr, **kw),
+        "kv_norm": nn.rmsnorm_init(r, **kw),
+        "wkv_b": nn.dense_init(generator, r, H * (dn + dv), **kw),
+        "wo": nn.dense_init(generator, H * dv, d, **kw),
+    }
+
+
+def _mla_qkv(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
+    """The shared projections → ``q_nope, q_rope, c_kv, k_rope`` (rotated):
+    the latent through its rmsnorm, one rope key shared by every head
+    (``(B, S, 1, dr)``)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = nn.dense(p["wq"], x).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv_a = nn.dense(p["wkv_a"], x)  # (B, S, r + dr)
+    c_kv = nn.rmsnorm(p["kv_norm"], kv_a[..., :r])
+    k_rope = kv_a[..., r:][:, :, None, :]
+    cos, sin = rope_cos_sin(positions, dr, cfg.rope_base)
+    return q_nope, apply_rope(q_rope, cos, sin), c_kv, apply_rope(k_rope, cos, sin)
+
+
+def mla_fwd(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
+            impl: str = "chunked") -> torch.Tensor:
+    """Training/prefill MLA (``repro/models/attention.py:323-335``): expand
+    the latent to per-head keys and values and run causal attention with
+    ``scale = 1/sqrt(dn + dr)``."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dv, dr = cfg.qk_nope_dim, cfg.v_head_dim, cfg.qk_rope_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    kv = nn.dense(p["wkv_b"], c_kv).reshape(B, S, H, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+    fn = chunked_attention if impl == "chunked" else reference_attention
+    o = fn(q, k, v, causal=True, scale=1.0 / math.sqrt(dn + dr))
+    return nn.dense(p["wo"], o.reshape(B, S, H * dv))
+
+
+def mla_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, ckv_cache: torch.Tensor,
+               krope_cache: torch.Tensor, cur_len, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Absorbed decode → ``(y, ckv_cache, krope_cache)``
+    (``repro/models/attention.py:338-385``): attention runs in the latent
+    space,
+
+        scores = (q_nope · W_kvb^K) · c_kv + q_rope · k_rope
+        out    = W_o · (W_kvb^V · Σ p·c_kv)
+
+    over the caches ``(B, S_max, r)`` and ``(B, S_max, dr)``, 576 elements
+    a token at DeepSeek-V2-Lite's widths.  The new token's latent and
+    rope key are written at ``cur`` in place.
+    """
+    B = x.shape[0]
+    H = cfg.n_heads
+    r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    S_max = ckv_cache.shape[1]
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, cfg, x, positions)
+    cur = _cur_lens(cur_len, B, x.device)
+    bidx = torch.arange(B, device=x.device)
+    ckv_cache[bidx, cur] = c_kv_new[:, 0].to(ckv_cache.dtype)
+    krope_cache[bidx, cur] = k_rope_new[:, 0, 0, :].to(krope_cache.dtype)
+
+    wkb = p["wkv_b"]["w"].reshape(r, H, dn + dv)
+    w_k, w_v = wkb[..., :dn], wkb[..., dn:]  # (r, H, dn), (r, H, dv)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_k.float())
+    s_lat = torch.einsum("bhr,btr->bht", q_lat, ckv_cache.float())
+    s_rope = torch.einsum("bhd,btd->bht", q_rope[:, 0].float(), krope_cache.float())
+    s = (s_lat + s_rope) / math.sqrt(dn + dr)
+    valid = torch.arange(S_max, device=x.device)[None, :] <= cur[:, None]
+    s = s.masked_fill(~valid[:, None, :], float("-inf"))
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bht,btr->bhr", pr, ckv_cache.float())  # (B, H, r)
+    o = torch.einsum("bhr,rhd->bhd", o_lat, w_v.float())  # (B, H, dv)
+    o = o.reshape(B, 1, H * dv).to(x.dtype)
+    return nn.dense(p["wo"], o), ckv_cache, krope_cache
+
+
+# ===================================================================== #
+# dispatch
+# ===================================================================== #
+def init_attention(generator: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
+                   device="cuda") -> dict:
+    if cfg.is_mla:
+        return init_mla(generator, cfg, dtype, device)
+    return init_gqa(generator, cfg, dtype, device)
+
+
 def attention_fwd(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
                   impl: str = "chunked") -> torch.Tensor:
     if cfg.is_mla:
-        raise NotImplementedError(
-            "MLA attention is not ported yet: ROADMAP Queue 1 item 7, 'MLA and "
-            "the SSM mixers'")
+        return mla_fwd(p, cfg, x, positions, impl=impl)
     return gqa_fwd(p, cfg, x, positions, impl=impl)

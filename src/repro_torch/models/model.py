@@ -7,7 +7,9 @@ over as a tree of numpy arrays, into the same tree of tensors.  Both
 trees match ``repro.models.model.init_params`` leaf for leaf.
 :func:`forward` (embeddings → pattern stacks → head) and :func:`loss_fn`
 (cross-entropy + z-loss + MoE aux) are the training path; gradients come
-from ``torch.autograd``.  ``decode_step`` is a later slice.
+from ``torch.autograd``.  :func:`decode_step` is the model's own
+autoregressive step over the dense caches of :func:`init_decode_state`
+(the serving engine pages its caches instead).
 """
 
 from __future__ import annotations
@@ -22,7 +24,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import nn
 from repro_torch.models.nn import Params
-from repro_torch.models.transformer import BlockSpec, init_stack, stack_fwd
+from repro_torch.models.transformer import (
+    BlockSpec,
+    init_stack,
+    init_stack_state,
+    stack_decode,
+    stack_fwd,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,10 +119,16 @@ def params_from_jax(tree: Any, device="cuda", dtype: Optional[torch.dtype] = Non
 
     The tree's structure (dicts, lists, None) is kept; each leaf is copied
     to ``device`` (and cast to ``dtype`` when given).  Imports nothing of
-    JAX: the caller converts with ``np.asarray`` first.
+    JAX: the caller converts with ``np.asarray`` first.  A bfloat16 leaf
+    (numpy's ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` does not
+    take) goes over as its 16-bit pattern, bit for bit.
     """
     def leaf(x):
-        t = torch.from_numpy(np.array(x, copy=True))
+        a = np.array(x, copy=True)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
         return t.to(device=device, dtype=dtype or t.dtype)
 
     return tree_map(leaf, tree)
@@ -256,3 +270,40 @@ def np_prod_shape(shape) -> int:
     for s in shape:
         out *= int(s)
     return out
+
+
+# ===================================================================== #
+# decode
+# ===================================================================== #
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
+                      device="cuda") -> List[list]:
+    """Zeroed caches for :func:`decode_step`, one list per stack
+    (``repro/models/model.py:271-278``)."""
+    return [init_stack_state(pat, reps, batch, max_len, dtype, device)
+            for pat, reps in cfg.stacks]
+
+
+def decode_step(p: Params, cfg: ModelConfig, tokens_t: torch.Tensor, states: List[list],
+                cur_len, positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List[list]]:
+    """One autoregressive step → ``(logits (B, 1, vocab[, K]), states)``
+    (``repro/models/model.py:281-300``).
+
+    ``tokens_t (B, 1)``, or ``(B, 1, K)`` for musicgen's codebooks;
+    ``cur_len``: the tokens each sequence already holds (an int or
+    ``(B,)``); ``positions`` default to ``cur_len`` (``(3, B, 1)`` under
+    M-RoPE).  The new token's keys and values are written into the
+    caches in place, the port's form of JAX's buffer donation: the
+    returned states are ``states`` itself, so a caller that keeps a
+    state from before the step clones it first.
+    """
+    B = tokens_t.shape[0]
+    cur = torch.as_tensor(cur_len, device=tokens_t.device)  # one copy a step at most
+    if positions is None:
+        pos1 = cur.to(torch.int32).reshape(-1, 1).expand(B, 1)
+        positions = torch.stack([pos1] * 3) if cfg.mrope else pos1
+    h = _embed_tokens(p, cfg, tokens_t)
+    for sp, (pat, reps), st in zip(p["stacks"], cfg.stacks, states):
+        h, _ = stack_decode(sp, pat, reps, h, st, cur, positions)
+    h = nn.rmsnorm(p["final_norm"], h)
+    return _logits(p, cfg, h), states

@@ -31,7 +31,12 @@ from repro.models.model import init_params as jax_init_params  # noqa: E402
 from repro.serving import EngineConfig as JaxEngineConfig  # noqa: E402
 from test_serving_parity import lifecycle_trace as jax_lifecycle_trace  # noqa: E402
 from test_torch_models import _flatten  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config, list_archs  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    get_config,
+    get_smoke_config,
+    list_archs,
+    served_archs,
+)
 from repro_torch.core import TppConfig  # noqa: E402
 from repro_torch.launch.serve import lifecycle_trace  # noqa: E402
 from repro_torch.models.model import init_params, param_bytes, params_from_jax  # noqa: E402
@@ -39,15 +44,19 @@ from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
 
 FAMILIES = ("gemma3-4b", "phi3-medium-14b", "chatglm3-6b", "qwen2-vl-2b",
             "musicgen-medium")
-ARCHS = ("tinyllama-1.1b",) + FAMILIES + ("phi3.5-moe-42b-a6.6b",)
-NOT_SERVED = ("deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-350m")
+SERVED = ("tinyllama-1.1b",) + FAMILIES + ("phi3.5-moe-42b-a6.6b",)
+# deepseek-v2-lite: ported, decoded through decode_step; the engines refuse MLA
+ARCHS = SERVED + ("deepseek-v2-lite-16b",)
+NOT_PORTED = ("zamba2-2.7b", "xlstm-350m")
 # tests/test_serving_parity.py:37-40
 BASE = dict(page_size=4, num_fast=10, num_slow=64, recent_pages=1)
 FIELDS = ("tokens", "stats", "finished_out", "tiers", "types", "vmstat")
 
 
 def test_the_port_registers_every_arch_the_jax_engine_serves():
+    """The eight ported archs; the engine's seven among them."""
     assert sorted(list_archs()) == sorted(ARCHS)
+    assert sorted(served_archs()) == sorted(SERVED)
 
 
 @pytest.mark.parametrize("size", ["config", "smoke_config"])
@@ -60,7 +69,7 @@ def test_config_equals_jax(arch, size):
     assert got.n_layers == want.n_layers and got.max_window() == want.max_window()
 
 
-@pytest.mark.parametrize("arch", NOT_SERVED)
+@pytest.mark.parametrize("arch", NOT_PORTED)
 def test_archs_the_jax_engine_does_not_serve_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         get_config(arch)

@@ -59,7 +59,8 @@ def test_serving_engine_import_loads_no_jax():
             "repro_torch.benchmarks.traffic_bench, repro_torch.benchmarks.expert_tiering, "
             "repro_torch.fleet, repro_torch.core.simulator, "
             "repro_torch.benchmarks.fleet_bench, repro_torch.launch.train, "
-            "repro_torch.optim.offload, repro_torch.checkpoint, repro_torch.data; "
+            "repro_torch.optim.offload, repro_torch.checkpoint, repro_torch.data, "
+            "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.launch.generate; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax')); "
             "assert not any(m == 'repro' or m.startswith('repro.') "

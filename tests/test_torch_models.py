@@ -171,9 +171,33 @@ def test_params_from_jax_round_trips_leaf_for_leaf():
         np.testing.assert_array_equal(got.numpy(), want, err_msg=path)
 
 
+def test_params_from_jax_takes_bfloat16_leaves_bit_for_bit():
+    """A JAX tree cast to bfloat16 reaches the port as numpy's
+    ``ml_dtypes.bfloat16`` leaves; each arrives as a bfloat16 tensor with
+    the same 16-bit patterns."""
+    cfg = jax_smoke_config("deepseek-v2-lite-16b")
+    jp = jax.tree_util.tree_map(
+        lambda x: np.asarray(x.astype(jnp.bfloat16)),
+        jax_init_params(jax.random.PRNGKey(0), cfg))
+    tp = params_from_jax(jp, device="cpu")
+    jflat, tflat = _flatten(jp), _flatten(tp)
+    assert sorted(jflat) == sorted(tflat)
+    cast = _flatten(params_from_jax(jp, device="cpu", dtype=torch.float32))
+    for path, want in jflat.items():
+        got = tflat[path]
+        if want is None:
+            assert got is None and cast[path] is None, path
+            continue
+        assert got.dtype == torch.bfloat16, path
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(), want.view(np.int16),
+                                      err_msg=path)
+        np.testing.assert_array_equal(cast[path].numpy(), want.astype(np.float32),
+                                      err_msg=path)
+
+
 @pytest.mark.parametrize("arch", [
     "tinyllama-1.1b", "gemma3-4b", "phi3-medium-14b", "chatglm3-6b", "qwen2-vl-2b",
-    "musicgen-medium", "phi3.5-moe-42b-a6.6b"])
+    "musicgen-medium", "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b"])
 def test_init_params_matches_jax_tree_names_shapes_dtypes(arch):
     jcfg = jax_smoke_config(arch)
     jflat = _flatten(jax.tree_util.tree_map(

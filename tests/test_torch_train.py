@@ -182,3 +182,15 @@ def test_cli_trains_on_the_cpu():
         env=env, capture_output=True, text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "done: 3 steps, resumed_from=None" in proc.stdout
+
+
+def test_cli_trains_deepseek_on_the_cpu():
+    """MLA and shared experts through the launcher (the engines do not
+    serve deepseek-v2-lite; it trains and decodes)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "deepseek-v2-lite-16b",
+         "--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "32", "--batch", "4"],
+        env=env, capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "done: 2 steps, resumed_from=None" in proc.stdout

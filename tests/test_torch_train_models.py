@@ -9,7 +9,8 @@ leaf within 1e-4 of that leaf's max-abs plus 1e-6; attention values and
 vjps within 1e-5.  Reached on this tree: losses within 9.6e-7,
 gradient leaves within 3.3e-6 of their max-abs (gemma3-4b's global
 ``wk``), attention within 2.6e-7 (values) and 2.9e-6 (vjps), MoE
-gradients within 3.2e-7 of their max-abs.
+gradients within 3.2e-7 of their max-abs.  deepseek-v2-lite (MLA, shared
+experts) is one of the eight archs.
 """
 
 import functools
@@ -108,11 +109,31 @@ def test_chunked_attention_values_and_vjp_match_jax(case):
                                atol=ATTN_TOL, rtol=ATTN_TOL)
 
 
-def test_attention_fwd_refuses_mla():
-    cfg = tattn.AttnConfig(d_model=16, n_heads=2, n_kv_heads=2, head_dim=8,
-                           kv_lora_rank=8)
-    with pytest.raises(NotImplementedError, match="MLA and the SSM mixers"):
-        tattn.attention_fwd({}, cfg, torch.zeros(1, 2, 16), torch.zeros(1, 2))
+@pytest.mark.parametrize("impl", ["chunked", "reference"])
+def test_mla_fwd_values_and_vjp_match_jax(impl):
+    """MLA's training forward through ``attention_fwd`` (q/k width 24, v
+    width 12, so ``chunked_attention`` with Dv != D), values and the vjp
+    of the input and every weight within ``ATTN_TOL``."""
+    a = dict(d_model=32, n_heads=4, n_kv_heads=4, head_dim=24, kv_lora_rank=16,
+             qk_nope_dim=16, qk_rope_dim=8, v_head_dim=12)
+    jcfg, tcfg = jattn.AttnConfig(**a), tattn.AttnConfig(**a)
+    jp = jattn.init_mla(jax.random.PRNGKey(2), jcfg)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 19, 32)).astype(np.float32)
+    dy = rng.standard_normal((2, 19, 32)).astype(np.float32)
+    pos = np.ascontiguousarray(np.broadcast_to(np.arange(19, dtype=np.int32) + 2, (2, 19)))
+    yj, vjp = jax.vjp(lambda p, xx: jattn.attention_fwd(p, jcfg, xx, jnp.asarray(pos),
+                                                         impl=impl), jp, jnp.asarray(x))
+    gpj, gxj = vjp(jnp.asarray(dy))
+    tp = tmodel.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    leaves = [t.requires_grad_(True) for t in tnn.tree_leaves(tp)]
+    xt = torch.from_numpy(x).requires_grad_(True)
+    yt = tattn.attention_fwd(tp, tcfg, xt, torch.from_numpy(pos), impl=impl)
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), atol=ATTN_TOL,
+                               rtol=ATTN_TOL)
+    grads = torch.autograd.grad(yt, leaves + [xt], torch.from_numpy(dy))
+    for gt, gj in zip(grads, jax.tree_util.tree_leaves(gpj) + [gxj]):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=ATTN_TOL, rtol=ATTN_TOL)
 
 
 # --------------------------------------------------------------------- #
