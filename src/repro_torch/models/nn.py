@@ -53,7 +53,12 @@ def rmsnorm_init(d: int, *, dtype=torch.float32, device="cuda") -> Params:
 # layers
 # --------------------------------------------------------------------- #
 def dense(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``x @ w (+ b)``.  Operands of two dtypes compute in their promoted
+    dtype, as JAX's ``@`` does (torch's refuses them); the bias's sum
+    promotes alike."""
     w = p["w"]
+    if dtype is None and w.dtype != x.dtype:
+        dtype = torch.promote_types(x.dtype, w.dtype)
     if dtype is not None:
         w = w.to(dtype)
         x = x.to(dtype)

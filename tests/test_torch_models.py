@@ -60,6 +60,27 @@ def test_nn_dense_embed_rmsnorm(bias):
     close(tnn.rmsnorm(ts, torch.from_numpy(x)), jnn.rmsnorm(js, jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("x_dtype,w_dtype", [("float32", "bfloat16"),
+                                             ("bfloat16", "float32")])
+def test_nn_dense_promotes_mixed_dtypes_as_jax(x_dtype, w_dtype):
+    """JAX's ``@`` promotes a float32 and a bfloat16 operand to float32
+    (the mLSTM's float32 gates on a bfloat16 tree, the sLSTM's bfloat16
+    gates on float32 inputs); the port's ``nn.dense`` computes in
+    ``torch.promote_types`` of the two, the bias too."""
+    rng = np.random.default_rng(4)
+    x = arr(rng, 3, 16).astype(jnp.dtype(x_dtype)).astype(np.float32)
+    w = arr(rng, 16, 8).astype(jnp.dtype(w_dtype)).astype(np.float32)
+    b = arr(rng, 8).astype(jnp.dtype(w_dtype)).astype(np.float32)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for p in ({"w": w}, {"w": w, "b": b}):
+        jp = {k: jnp.asarray(v, jnp.dtype(w_dtype)) for k, v in p.items()}
+        want = jnn.dense(jp, jnp.asarray(x, jnp.dtype(x_dtype)))
+        tp = {k: torch.from_numpy(v).to(tdt[w_dtype]) for k, v in p.items()}
+        got = tnn.dense(tp, torch.from_numpy(x).to(tdt[x_dtype]))
+        assert got.dtype == torch.float32 and want.dtype == jnp.float32
+        close(got, want)
+
+
 @pytest.mark.parametrize("variant", ["rope", "partial", "mrope"])
 def test_rope_variants(variant):
     rng = np.random.default_rng(1)
