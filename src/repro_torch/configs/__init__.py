@@ -2,14 +2,14 @@
 
 Counterpart of ``repro/configs/__init__.py``.  Each module exports
 ``config()`` (the published numbers) and ``smoke_config()`` (a reduced
-variant of the same family for CPU tests).  Ported: the seven
-architectures the JAX ``ServingEngine`` pages (GQA or MHA attention):
-tinyllama-1.1b, gemma3-4b, phi3-medium-14b, chatglm3-6b, qwen2-vl-2b,
-musicgen-medium (dense FFNs) and phi3.5-moe-42b-a6.6b (MoE), and
-deepseek-v2-lite-16b (MLA and MoE), which both engines refuse and which
-trains and decodes through ``decode_step``: :func:`served_archs` lists
-the seven.  zamba2-2.7b and xlstm-350m (recurrent mixers) belong to
-ROADMAP Queue 1 item 7b and raise ``NotImplementedError`` here.
+variant of the same family for CPU tests).  Every architecture of the
+JAX package: the seven the JAX ``ServingEngine`` pages (GQA or MHA
+attention): tinyllama-1.1b, gemma3-4b, phi3-medium-14b, chatglm3-6b,
+qwen2-vl-2b, musicgen-medium (dense FFNs) and phi3.5-moe-42b-a6.6b
+(MoE), listed by :func:`served_archs`; and three that both engines
+refuse, which train and decode through ``decode_step``:
+deepseek-v2-lite-16b (MLA and MoE), zamba2-2.7b (Mamba2 and a shared
+attention block with LoRA deltas) and xlstm-350m (mLSTM and sLSTM).
 """
 
 from __future__ import annotations
@@ -26,17 +26,13 @@ ALIASES: Dict[str, str] = {
     "musicgen-medium": "musicgen_medium",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 
 def _module(name: str):
     mod = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod not in ALIASES.values():
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (have {list(ALIASES)}); "
-            "see ROADMAP Queue 1 item 7b, 'MLA and the SSM mixers, part 2: the SSM "
-            "mixers'"
-        )
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -277,8 +277,9 @@ def np_prod_shape(shape) -> int:
 # ===================================================================== #
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
                       device="cuda") -> List[list]:
-    """Zeroed caches for :func:`decode_step`, one list per stack
-    (``repro/models/model.py:271-278``)."""
+    """Initial decode states for :func:`decode_step`, one list per stack
+    (``repro/models/model.py:271-278``): zeroed attention caches, each
+    recurrent mixer's initial state."""
     return [init_stack_state(pat, reps, batch, max_len, dtype, device)
             for pat, reps in cfg.stacks]
 
@@ -293,9 +294,10 @@ def decode_step(p: Params, cfg: ModelConfig, tokens_t: torch.Tensor, states: Lis
     ``cur_len``: the tokens each sequence already holds (an int or
     ``(B,)``); ``positions`` default to ``cur_len`` (``(3, B, 1)`` under
     M-RoPE).  The new token's keys and values are written into the
-    caches in place, the port's form of JAX's buffer donation: the
-    returned states are ``states`` itself, so a caller that keeps a
-    state from before the step clones it first.
+    caches, and each recurrent mixer's new state into its tensors, in
+    place, the port's form of JAX's buffer donation: the returned states
+    are ``states`` itself, so a caller that keeps a state from before the
+    step clones it first.
     """
     B = tokens_t.shape[0]
     cur = torch.as_tensor(cur_len, device=tokens_t.device)  # one copy a step at most

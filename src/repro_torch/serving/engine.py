@@ -58,6 +58,7 @@ from repro_torch.models.attention import _rotate, make_cos_sin
 from repro_torch.models.ffn import ffn_fwd
 from repro_torch.models.model import ModelConfig, tree_map
 from repro_torch.models.moe import moe_fwd
+from repro_torch.models.transformer import lora_delta
 from repro_torch.qos import make_control
 from repro_torch.serving.kv_cache import KVCacheConfig, TieredKVCache, bucket as _bucket
 
@@ -125,12 +126,19 @@ class _Seq:
 
 
 def _flat_layers(params: Any, cfg: ModelConfig) -> List[Any]:
-    """Unstack the per-repeat params → one param dict per layer (views)."""
+    """Unstack the per-repeat params → one param dict per layer (views);
+    a shared position gives ``{"base": ..., "lora": ...}``, its base block
+    and the ``[r]`` slice of its LoRA deltas."""
     out: List[Any] = []
     for sp, (pat, reps) in zip(params["stacks"], cfg.stacks):
         for r in range(reps):
             for pos in range(len(pat)):
-                out.append(tree_map(lambda x: x[r], sp["blocks"][pos]))
+                blk = sp["blocks"][pos]
+                if blk is None:
+                    out.append({"base": sp["shared"][pos],
+                                "lora": tree_map(lambda x: x[r], sp["lora"][pos])})
+                else:
+                    out.append(tree_map(lambda x: x[r], blk))
     return out
 
 
@@ -228,7 +236,7 @@ class ServingEngine:
                 dtype=torch.float32, device=self.device)
             self._kcnt = torch.zeros((engine.max_seqs + 1, self._mp_cap),
                                      dtype=torch.float32, device=self.device)
-            pa0 = self.layers[0]
+            pa0 = self.layers[0].get("base", self.layers[0])
             self._probe_params = (params["embed"], pa0["norm1"], pa0["attn"]["wq"])
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -362,7 +370,8 @@ class ServingEngine:
         pos = torch.arange(S, dtype=torch.int32, device=self.device)[None, :]
         k_layers, v_layers = [], []
         for li, spec in enumerate(self.specs):
-            pa = self.layers[li]
+            p = self.layers[li]
+            pa = p.get("base", p)
             a = spec.attn
             h = nn.rmsnorm(pa["norm1"], x)
             q = nn.dense(pa["attn"]["wq"], h).reshape(1, S, a.n_heads, a.head_dim)
@@ -377,7 +386,7 @@ class ServingEngine:
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=True, window=a.window,
             )  # (1, H, S, D)
-            x = x + nn.dense(pa["attn"]["wo"], o.transpose(1, 2).reshape(1, S, -1))
+            x = x + self._attn_out(p, o.transpose(1, 2).reshape(1, S, -1), h)
             if spec.has_ffn:
                 x = x + self._ffn(pa, spec, x)
             k_layers.append(k[0])  # (S, Hkv, D)
@@ -516,7 +525,7 @@ class ServingEngine:
         # page selection is shared across layers (pages span all layers);
         # use the embedding-projected mean query of layer 0 as the probe.
         a0 = self.specs[0].attn
-        p0 = self.layers[0]
+        p0 = self.layers[0].get("base", self.layers[0])
         q_probe = nn.dense(p0["attn"]["wq"], nn.rmsnorm(p0["norm1"], x))
         q_mean = (q_probe.reshape(a0.n_kv_heads, -1, a0.head_dim)
                   .mean(dim=1).cpu().numpy())  # (Hkv, D)
@@ -546,7 +555,8 @@ class ServingEngine:
 
         kv_new_layers = []
         for li, spec in enumerate(self.specs):
-            pa = self.layers[li]
+            p = self.layers[li]
+            pa = p.get("base", p)
             a = spec.attn
             h = nn.rmsnorm(pa["norm1"], x)
             q = nn.dense(pa["attn"]["wq"], h).reshape(1, 1, a.n_heads, a.head_dim)
@@ -575,7 +585,7 @@ class ServingEngine:
             s = s.masked_fill(~vmask[None, None, :], -math.inf)
             pr = torch.softmax(s, dim=-1)
             o = torch.einsum("hgt,thd->hgd", pr, vs.float())
-            x = x + nn.dense(pa["attn"]["wo"], o.reshape(1, 1, -1).to(x.dtype))
+            x = x + self._attn_out(p, o.reshape(1, 1, -1).to(x.dtype), h)
             if spec.has_ffn:
                 x = x + self._ffn(pa, spec, x)
             kv_new_layers.append(torch.cat([k[0, 0].reshape(-1), v[0, 0].reshape(-1)]))
@@ -695,7 +705,8 @@ class ServingEngine:
         wf, ws = wframe.long(), wslot.long()
         k_layers = []
         for li, spec in enumerate(self.specs):
-            pa = self.layers[li]
+            p = self.layers[li]
+            pa = p.get("base", p)
             a = spec.attn
             h = nn.rmsnorm(pa["norm1"], x)
             q = nn.dense(pa["attn"]["wq"], h).reshape(B, 1, a.n_heads, a.head_dim)
@@ -714,7 +725,7 @@ class ServingEngine:
                 q[:, 0], k_store[:, li], v_store[:, li], block_table,
                 page_pos=page_start, q_pos=q_pos, window=a.window,
             )  # (B, H, D)
-            x = x + nn.dense(pa["attn"]["wo"], o.reshape(B, 1, -1).to(x.dtype))
+            x = x + self._attn_out(p, o.reshape(B, 1, -1).to(x.dtype), h)
             if spec.has_ffn:
                 # padded lanes go through the MoE too, as in the JAX
                 # engine: they count towards each expert's capacity
@@ -735,6 +746,15 @@ class ServingEngine:
         if self.cfg.tie_embeddings:
             return h @ self.params["embed"]["table"].T.to(h.dtype)
         return nn.dense(self.params["lm_head"], h)
+
+    @staticmethod
+    def _attn_out(p: Any, o: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """The output projection of attention ``o``; a shared layer adds
+        its LoRA delta on the normed input ``h``, as JAX's engine does."""
+        y = nn.dense(p.get("base", p)["attn"]["wo"], o)
+        if "base" in p:
+            y = y + lora_delta(p["lora"], h)
+        return y
 
     @staticmethod
     def _ffn(pa: Any, spec: Any, x: torch.Tensor) -> torch.Tensor:

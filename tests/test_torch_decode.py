@@ -1,9 +1,11 @@
 """The port's dense-cache decode and MLA against the JAX package's.
 
 ``gqa_decode`` (a full cache, a windowed mask, a rolling buffer, M-RoPE)
-and ``mla_decode`` one step from a random cache; ``decode_step`` of all
-eight ported archs' smoke configs over S=10 teacher-forced steps, logits
-and every state leaf, with JAX's step under ``jax.jit``; the ports of
+and ``mla_decode`` one step from a random cache; ``decode_step`` of all ten
+archs' smoke configs over S=10 teacher-forced steps, logits and every
+state leaf (zamba2's shared block with nonzero LoRA ``qb``/``ob``;
+xlstm-350m within JAX's own float32 spread, see its test), with JAX's
+step under ``jax.jit``; the ports of
 ``test_fwd_decode_parity`` and ``test_rolling_window_cache_matches_full``
 (``tests/test_models.py:70``, ``:112``) at their ``atol=5e-5,
 rtol=1e-3``; the greedy launcher and the engine's refusal of MLA.  JAX
@@ -35,6 +37,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import nn as tnn  # noqa: E402
 from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
+from test_torch_models import perturb_lora  # noqa: E402
 
 TOL = 1e-5
 PARITY = dict(atol=5e-5, rtol=1e-3)  # tests/test_models.py:87-90
@@ -125,7 +128,7 @@ def decode_runs(arch, seq=S, batch=B, seed=1):
     ``forward`` over them: ``(jax logits, jax states, port logits, port
     states, port forward logits)``, numpy."""
     jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
-    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = perturb_lora(jmodel.init_params(jax.random.PRNGKey(0), jcfg))
     tp = to_torch(jp)
     shape = (batch, seq) + ((jcfg.n_codebooks,) if jcfg.n_codebooks > 1 else ())
     toks = np.random.default_rng(seed).integers(0, jcfg.vocab, shape).astype(np.int32)
@@ -146,7 +149,11 @@ def decode_runs(arch, seq=S, batch=B, seed=1):
             np.concatenate(tl, axis=1), tnn.tree_leaves(tst), full.detach().numpy())
 
 
-@pytest.mark.parametrize("arch", list_archs())
+# no float32 port holds these to JAX at TOL: see the test below
+SPREAD_ARCHS = ("xlstm-350m",)
+
+
+@pytest.mark.parametrize("arch", [a for a in list_archs() if a not in SPREAD_ARCHS])
 def test_decode_step_logits_and_states_match_jax(arch):
     jl, jst, tl, tst, _ = decode_runs(arch)
     assert tl.shape == jl.shape
@@ -155,6 +162,55 @@ def test_decode_step_logits_and_states_match_jax(arch):
     for i, (a, b) in enumerate(zip(jst, tst)):
         assert tuple(b.shape) == a.shape, i
         close(b, a, what=f"state leaf {i}")
+
+
+def one_ulp_spread(arch, nudges=4, seed=0):
+    """JAX's own float32 spread: per output of ``decode_runs(arch)`` (the
+    logits, then each state leaf), the largest change over ``nudges``
+    runs of JAX's jitted decode whose weights each moved one ulp up or
+    down at random."""
+    jcfg = jax_smoke_config(arch)
+    jp = perturb_lora(jmodel.init_params(jax.random.PRNGKey(0), jcfg))
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    step = jax.jit(lambda p, t, st, c: jmodel.decode_step(p, jcfg, t, st, c))
+
+    def run(p):
+        st, logits = jmodel.init_decode_state(jcfg, B, S + 2), []
+        for t in range(S):
+            lg, st = step(p, jnp.asarray(toks[:, t:t + 1]), st,
+                          jnp.full((B,), t, jnp.int32))
+            logits.append(np.asarray(lg))
+        return [np.concatenate(logits, axis=1)] + jax.tree_util.tree_leaves(st)
+
+    base = run(jp)
+    rng = np.random.default_rng(seed)
+    spread = [np.zeros(()) for _ in base]
+    for _ in range(nudges):
+        nudged = run(jax.tree_util.tree_map(lambda a: np.nextafter(
+            np.asarray(a), np.where(rng.random(a.shape) < 0.5, -np.inf, np.inf)
+            .astype(a.dtype)), jp))
+        spread = [np.maximum(sp, np.abs(np.asarray(a) - np.asarray(b)).max())
+                  for sp, a, b in zip(spread, base, nudged)]
+    return spread
+
+
+def test_xlstm_decode_step_matches_jax_within_its_own_float32_spread():
+    """xlstm-350m's exponential gates make its smoke decode too sensitive
+    for TOL: JAX's own decode, with every weight moved by one ulp, moves
+    its logits by up to 1.2e-5 and its states by up to 1.2e-4 over the 10
+    steps, past TOL, and so would any float32 implementation whose
+    roundings differ from XLA's.  The port is held to JAX within TOL plus
+    that spread, leaf by leaf (reached: the port's differences run from
+    1.5e-7 to 6.9e-5, the nudged runs' from 6.0e-8 to 1.2e-4)."""
+    jl, jst, tl, tst, _ = decode_runs("xlstm-350m")
+    spread = one_ulp_spread("xlstm-350m")
+    assert tl.shape == jl.shape and len(jst) == len(tst)
+    for i, (want, got, sp) in enumerate(zip([jl] + jst, [tl] + [t.numpy() for t in tst],
+                                            spread)):
+        want = np.asarray(want)
+        assert got.shape == want.shape, i
+        err = np.abs(got - want) - TOL * (1 + np.abs(want))
+        assert err.max() <= sp, f"output {i}: {err.max()} past TOL, spread {sp}"
 
 
 @pytest.mark.parametrize("arch", list_archs())

@@ -5,9 +5,10 @@ tied embeddings, two stacks), phi3-medium-14b (G=4), chatglm3-6b
 ``patch_proj``) and musicgen-medium (MHA, GELU with bias, a vocab×4
 codebook table).
 
-Each port config equals its JAX counterpart field for field; the port's
-``init_params`` builds the JAX tree (names, shapes, dtypes, bytes) at
-full width; and the port's batched engine equals the JAX batched engine
+For all ten archs, each port config equals its JAX counterpart field
+for field and the port's ``init_params`` builds the JAX tree (names,
+shapes, dtypes, bytes) at full width; both engines refuse zamba2-2.7b
+and xlstm-350m with the same words; and the port's batched engine equals the JAX batched engine
 over the lifecycle of ``tests/test_serving_parity.py`` on the smoke
 configs, with JAX weights converted by ``params_from_jax``, in float32
 on the CPU.  Every field must be equal, not close.  The reference-plane
@@ -29,6 +30,7 @@ from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.core import TppConfig as JaxTppConfig  # noqa: E402
 from repro.models.model import init_params as jax_init_params  # noqa: E402
 from repro.serving import EngineConfig as JaxEngineConfig  # noqa: E402
+from repro.serving import ServingEngine as JaxServingEngine  # noqa: E402
 from test_serving_parity import lifecycle_trace as jax_lifecycle_trace  # noqa: E402
 from test_torch_models import _flatten  # noqa: E402
 from repro_torch.configs import (  # noqa: E402
@@ -45,16 +47,16 @@ from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
 FAMILIES = ("gemma3-4b", "phi3-medium-14b", "chatglm3-6b", "qwen2-vl-2b",
             "musicgen-medium")
 SERVED = ("tinyllama-1.1b",) + FAMILIES + ("phi3.5-moe-42b-a6.6b",)
-# deepseek-v2-lite: ported, decoded through decode_step; the engines refuse MLA
-ARCHS = SERVED + ("deepseek-v2-lite-16b",)
-NOT_PORTED = ("zamba2-2.7b", "xlstm-350m")
+# decoded through decode_step; the engines refuse MLA, the SSM and the hybrid
+RECURRENT = ("zamba2-2.7b", "xlstm-350m")
+ARCHS = SERVED + ("deepseek-v2-lite-16b",) + RECURRENT
 # tests/test_serving_parity.py:37-40
 BASE = dict(page_size=4, num_fast=10, num_slow=64, recent_pages=1)
 FIELDS = ("tokens", "stats", "finished_out", "tiers", "types", "vmstat")
 
 
 def test_the_port_registers_every_arch_the_jax_engine_serves():
-    """The eight ported archs; the engine's seven among them."""
+    """All ten archs of the JAX package; the engine's seven among them."""
     assert sorted(list_archs()) == sorted(ARCHS)
     assert sorted(served_archs()) == sorted(SERVED)
 
@@ -69,10 +71,18 @@ def test_config_equals_jax(arch, size):
     assert got.n_layers == want.n_layers and got.max_window() == want.max_window()
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_archs_the_jax_engine_does_not_serve_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        get_config(arch)
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_the_engine_refuses_ssm_and_hybrid_as_jax_does(arch):
+    """Both engines refuse a config with a recurrent mixer, with JAX's
+    words (the port's message drops JAX's "v1" and its DESIGN.md pointer)."""
+    jcfg = jax_smoke_config(arch)
+    jp = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    with pytest.raises(ValueError, match="pages GQA attention archs; SSM/hybrid"):
+        JaxServingEngine(jcfg, jp, JaxEngineConfig())
+    with pytest.raises(ValueError, match="pages GQA attention archs; SSM/hybrid"):
+        ServingEngine(get_smoke_config(arch), params_from_jax(
+            jax.tree_util.tree_map(np.asarray, jp), device="cpu"), EngineConfig(),
+            device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

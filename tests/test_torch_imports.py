@@ -60,7 +60,9 @@ def test_serving_engine_import_loads_no_jax():
             "repro_torch.fleet, repro_torch.core.simulator, "
             "repro_torch.benchmarks.fleet_bench, repro_torch.launch.train, "
             "repro_torch.optim.offload, repro_torch.checkpoint, repro_torch.data, "
-            "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.launch.generate; "
+            "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.launch.generate, "
+            "repro_torch.models.ssm, repro_torch.configs.zamba2_2_7b, "
+            "repro_torch.configs.xlstm_350m; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax')); "
             "assert not any(m == 'repro' or m.startswith('repro.') "

@@ -177,6 +177,23 @@ def _flatten(tree, prefix=""):
     return {prefix: tree}
 
 
+def perturb_lora(jp, seed=0):
+    """A copy of the JAX tree ``jp`` whose LoRA ``qb`` and ``ob`` (zero at
+    init, which hides a shared block's delta) are seeded normals of
+    fan-in std ``1/sqrt(rank)``; a tree without LoRA is returned as is."""
+    rng = np.random.default_rng(seed)
+
+    def draw(x):
+        r = x.shape[-2]
+        return jnp.asarray(rng.standard_normal(x.shape) / np.sqrt(r), x.dtype)
+
+    stacks = [dict(sp, lora=[None if lo is None else dict(lo, qb=draw(lo["qb"]),
+                                                         ob=draw(lo["ob"]))
+                             for lo in sp["lora"]])
+              for sp in jp["stacks"]]
+    return dict(jp, stacks=stacks)
+
+
 def test_params_from_jax_round_trips_leaf_for_leaf():
     cfg = jax_smoke_config("tinyllama-1.1b")
     jp = jax.tree_util.tree_map(np.asarray, jax_init_params(jax.random.PRNGKey(0), cfg))
@@ -218,7 +235,8 @@ def test_params_from_jax_takes_bfloat16_leaves_bit_for_bit():
 
 @pytest.mark.parametrize("arch", [
     "tinyllama-1.1b", "gemma3-4b", "phi3-medium-14b", "chatglm3-6b", "qwen2-vl-2b",
-    "musicgen-medium", "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b"])
+    "musicgen-medium", "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b", "zamba2-2.7b",
+    "xlstm-350m"])
 def test_init_params_matches_jax_tree_names_shapes_dtypes(arch):
     jcfg = jax_smoke_config(arch)
     jflat = _flatten(jax.tree_util.tree_map(

@@ -27,6 +27,7 @@ from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
+from repro.models import transformer as jtrans  # noqa: E402
 from repro_torch.configs import get_smoke_config, list_archs  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -36,6 +37,7 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import nn as tnn  # noqa: E402
 from repro_torch.models import transformer as ttrans  # noqa: E402
+from test_torch_models import perturb_lora  # noqa: E402
 
 LOSS_TOL = 1e-5
 GRAD_REL, GRAD_ABS = 1e-4, 1e-6
@@ -145,7 +147,7 @@ B, S = 2, 24
 @functools.lru_cache(maxsize=None)
 def model_pair(arch):
     jcfg = jax_smoke_config(arch)
-    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = perturb_lora(jmodel.init_params(jax.random.PRNGKey(0), jcfg))
     tp = tmodel.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return jcfg, jp, get_smoke_config(arch), tp
 
@@ -368,7 +370,9 @@ def test_moe_kernel_wrappers_refuse_cpu_tensors():
                          torch.zeros(4, dtype=torch.int32), 2, 2)
 
 
-def test_block_and_stack_refuse_later_blocks():
-    spec = ttrans.BlockSpec(kind="mamba2")
-    with pytest.raises(NotImplementedError, match="MLA and the SSM mixers"):
-        ttrans.block_fwd({}, spec, torch.zeros(1, 2, 4), torch.zeros(1, 2))
+def test_an_unknown_block_kind_raises_as_jax_does():
+    spec = ttrans.BlockSpec(kind="rwkv")
+    with pytest.raises(ValueError, match="rwkv"):
+        jtrans.init_block(jax.random.PRNGKey(0), jtrans.BlockSpec(kind="rwkv"), 4)
+    with pytest.raises(ValueError, match="rwkv"):
+        ttrans.init_block(torch.Generator(), spec, 4, device="cpu")
