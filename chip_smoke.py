@@ -188,6 +188,21 @@ rolling window buffer wraps), logits and states within
 (1.085 G parameters) through ``train_loop``, 4 steps at B=8, S=256,
 launches exact.
 
+Then (``[ssm]``) the recurrent mixers: zamba2-2.7b (45 Mamba2 blocks and
+9 invocations of one shared attention block with LoRA deltas, seeded
+nonzero; 2.07 G parameters) and xlstm-350m (21 mLSTM, 3 sLSTM; 0.467 G)
+at published widths through ``launch/generate.py`` as deepseek above
+(no kernel launch on either path), the chunked forward against 64
+recurrent decode steps under the same rule, then 4 steps of
+``train_loop`` at B=8, S=256 (zamba2 with ``remat=True``) and a traced
+step (busy, idle, launches, top ops); their smoke
+configs cuda vs cpu: ``forward`` at S=21 (the last chunk pads), three
+training steps within ``TRAIN_SMOKE_TOL`` and 10 decode steps within
+``DECODE_SMOKE_TOL``, xlstm's forward and decode plus the CPU's own
+spread over one-ulp changes of its weights (``SPREAD_ARCHS``); and a
+config of tinyllama's smoke widths with a shared attention block served
+on both planes, cuda equal to cpu, launches exact.
+
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the result lines; there is no CPU fallback.
@@ -1525,6 +1540,8 @@ def main() -> None:
     launches_by_path.update(train_phase(torch, moe_full, smi, rows))
     # ---------------- [decode]: decode_step, MLA, deepseek-v2-lite ----- #
     launches_by_path.update(decode_phase(torch, smi, rows))
+    # ---------------- [ssm]: the recurrent mixers, shared blocks ------- #
+    launches_by_path.update(ssm_phase(torch, smi))
 
     for r in rows:
         log(f"[kernels] {r['name']}: max_abs_err {r['max_abs_err']} "
@@ -2743,31 +2760,31 @@ def tree_to(tree, device):
     return nn.tree_map(lambda t: t.to(device), tree)
 
 
-def train_smoke_phase(torch, arch, fails):
-    """Three ``make_train_step`` steps of ``arch``'s smoke config on the
-    card and on the CPU from the same weights and batches (plain, then
-    ``accum=2``, then ``remat=True``): losses, gradient norms and final
-    parameters held to ``TRAIN_SMOKE_TOL``; the MoE launches exact.
-    Returns the card's launch counts."""
+def train_smoke_phase(torch, arch, fails, tag="train"):
+    """Three ``make_train_step`` steps (the step ``train_loop`` runs) of
+    ``arch``'s smoke config, LoRA deltas nonzero, on the card and on the
+    CPU from the same weights and batches (plain, then ``accum=2``, then
+    ``remat=True``): losses, gradient norms and final parameters held to
+    ``TRAIN_SMOKE_TOL``, for the archs of ``SPREAD_ARCHS`` plus the CPU's
+    own spread over one-ulp changes of the weights; the MoE launches
+    exact.  Returns the card's launch counts."""
     from repro_torch import optim
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import DataConfig, make_batches
     from repro_torch.kernels import ops
     from repro_torch.launch.train import make_train_step, to_device
     from repro_torch.models import nn
-    from repro_torch.models.model import init_params
 
     cfg = get_smoke_config(arch)
     oc = optim.AdamWConfig(lr=TRAIN_SMOKE_LR)
-    cpu_p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu_p = smoke_params(torch, cfg)
     batches = make_batches(DataConfig(seq_len=32, global_batch=4, n_patches=4), cfg)
     batches = [next(batches) for _ in range(3)]
     kinds = [dict(), dict(accum=2), dict(remat=True)]
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        p = tree_to(cpu_p, dev)
+
+    def run(params, dev):
+        p = tree_to(params, dev)
         st = optim.init(p, oc)
-        ops.reset_launch_counts()
         losses, gnorms = [], []
         for kw, b in zip(kinds, batches):
             p, st, m = make_train_step(cfg, oc, **kw)(p, st, to_device(b, dev))
@@ -2775,27 +2792,42 @@ def train_smoke_phase(torch, arch, fails):
             gnorms.append(float(m["grad_norm"]))
             if int(m["skipped"]):
                 fails.append(f"train smoke {arch} {dev}: a step was skipped")
-        runs[dev] = (losses, gnorms, nn.tree_leaves(tree_to(p, "cpu")), ops.launch_counts())
-    (l0, g0, p0, _), (l1, g1, p1, launches) = runs["cpu"], runs["cuda"]
+        return losses, gnorms, nn.tree_leaves(tree_to(p, "cpu"))
+
+    host = run(cpu_p, "cpu")
     moved = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in
-                           zip(p0, nn.tree_leaves(cpu_p)))).item()
-    diff = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(p0, p1))).item()
-    max_diff = max((a - b).abs().max().item() for a, b in zip(p0, p1))
-    res = {"losses_cpu": l0, "losses_cuda": l1, "grad_norms_cpu": g0, "grad_norms_cuda": g1,
-           "loss_rel": max(abs(a - b) / abs(a) for a, b in zip(l0, l1)),
-           "grad_norm_rel": max(abs(a - b) / abs(a) for a, b in zip(g0, g1)),
-           "param_norm_rel": diff / moved, "param_max_abs": max_diff}
-    ok = (res["loss_rel"] <= TRAIN_SMOKE_TOL["loss_rel"]
-          and res["grad_norm_rel"] <= TRAIN_SMOKE_TOL["grad_norm_rel"]
-          and res["param_norm_rel"] <= TRAIN_SMOKE_TOL["param_norm_rel"]
-          and max_diff <= 2 * TRAIN_SMOKE_LR * len(kinds))
+                           zip(host[2], nn.tree_leaves(cpu_p)))).item()
+
+    def apart(a, b):
+        (l0, g0, p0), (l1, g1, p1) = a, b
+        return {"loss_rel": max(abs(x - y) / abs(x) for x, y in zip(l0, l1)),
+                "grad_norm_rel": max(abs(x - y) / abs(x) for x, y in zip(g0, g1)),
+                "param_norm_rel": torch.sqrt(sum(((x - y) ** 2).sum() for x, y in
+                                                 zip(p0, p1))).item() / moved,
+                "param_max_abs": max((x - y).abs().max().item() for x, y in zip(p0, p1))}
+
+    ops.reset_launch_counts()
+    card = run(cpu_p, "cuda")
+    launches = ops.launch_counts()
+    spread = dict.fromkeys(TRAIN_SMOKE_TOL, 0.0)
+    if arch in SPREAD_ARCHS:
+        gen = torch.Generator().manual_seed(SPREAD_SEED)
+        for _ in range(SPREAD_NUDGES):
+            d = apart(host, run(nudged(torch, cpu_p, gen), "cpu"))
+            spread = {k: max(v, d[k]) for k, v in spread.items()}
+    res = {"losses_cpu": host[0], "losses_cuda": card[0], "grad_norms_cpu": host[1],
+           "grad_norms_cuda": card[1], **apart(host, card)}
+    if arch in SPREAD_ARCHS:
+        res["cpu_one_ulp_spread"] = spread
+    ok = (all(res[k] <= tol + spread[k] for k, tol in TRAIN_SMOKE_TOL.items())
+          and res["param_max_abs"] <= 2 * TRAIN_SMOKE_LR * len(kinds))
     if not ok:
         fails.append(f"train smoke {arch}: cuda != cpu {res}")
     moe_layers = sum(1 for s in cfg.all_specs() if s.moe is not None)
     # forwards: 1, 2 (accum), 2 (remat recomputes); backwards 1, 2, 1
     check_train_launches(f"train smoke {arch}", launches,
                          expected_train_launches(moe_layers, 5, 4), fails)
-    log(f"[train] smoke {arch} cuda vs cpu {json.dumps(res)}")
+    log(f"[{tag}] smoke {arch} cuda vs cpu {json.dumps(res)}")
     return launches
 
 
@@ -3147,7 +3179,7 @@ def decode_kernels(torch, cfg, flush, fails, rows):
         log(f"[decode] moe kernels at {name}: {json.dumps(res)}")
 
 
-def greedy_decode_run(torch, cfg, params, smi, fails):
+def greedy_decode_run(torch, cfg, params, smi, fails, tag="decode"):
     """Greedy generation through ``generate`` (``decode_step`` one token a
     step, then one scoring ``forward``) with the launch counts set to 0
     just before and read just after; then a profile of
@@ -3168,18 +3200,18 @@ def greedy_decode_run(torch, cfg, params, smi, fails):
     toks = res["tokens"]
     if (tuple(toks.shape) != (DECODE["requests"], DECODE["max_new"])
             or not bool(((toks >= 0) & (toks < cfg.vocab)).all())):
-        fails.append(f"decode {DEEPSEEK}: malformed tokens {toks.tolist()}")
+        fails.append(f"decode {cfg.name}: malformed tokens {toks.tolist()}")
     if not (res["logits_finite"] and res["score_finite"]):
-        fails.append(f"decode {DEEPSEEK}: logits not finite")
+        fails.append(f"decode {cfg.name}: logits not finite")
     want = expected_train_launches(L, res["steps"] + 1, 0)
-    check_train_launches(f"decode {DEEPSEEK}", launches, want, fails)
+    check_train_launches(f"decode {cfg.name}", launches, want, fails)
     states = init_decode_state(cfg, DECODE["requests"],
                                DECODE["prompt_len"] + DECODE["max_new"], device="cuda")
     prof = profile_decode_steps(cfg, params, states, prompts[:, :1], 0, DECODE_PROFILE_STEPS,
-                                str(ROOT / "build" / "profile" / "decode_deepseek"))
+                                str(ROOT / "build" / "profile" / f"decode_{cfg.name}"))
     secs = res["step_seconds"]
     summary = {
-        "arch": DEEPSEEK, "layers": cfg.n_layers, **DECODE, "decode_steps": res["steps"],
+        "arch": cfg.name, "layers": cfg.n_layers, **DECODE, "decode_steps": res["steps"],
         "tokens": toks.tolist(), "score_nll": res["score_nll"],
         "prompt_ms_per_step_median": res["prompt_ms_per_step"],
         "generate_ms_per_step_median": res["generate_ms_per_step"],
@@ -3187,29 +3219,31 @@ def greedy_decode_run(torch, cfg, params, smi, fails):
         "first_step_ms": 1e3 * secs[0],
         "peak_device_memory_GiB": peak / 2**30, "launches": launches,
         "profile": prof, "card": smi}
-    log(f"[decode] {DEEPSEEK} greedy {json.dumps(summary)}")
+    log(f"[{tag}] {cfg.name} greedy {json.dumps(summary)}")
     del states
     return launches
 
 
-def fwd_vs_decode_run(torch, cfg, params, fails):
-    """On a drop-free variant of ``cfg`` (capacity factor E / k: every
-    expert takes every row, C >= T in the forward and at decode), the
-    forward over the prompts against ``prompt_len`` teacher-forced
-    ``decode_step``s, held to ``FWD_DECODE_REL`` and ``NEAR_TIE``.
+def fwd_vs_decode_run(torch, cfg, params, fails, tag="decode"):
+    """The forward over the prompts against ``prompt_len`` teacher-forced
+    ``decode_step``s, held to ``FWD_DECODE_REL`` and ``NEAR_TIE``; an MoE
+    config runs its drop-free variant (capacity factor E / k: every
+    expert takes every row, C >= T in the forward and at decode).
     Returns the launch counts of the forward and the steps."""
     from repro_torch.kernels import ops
     from repro_torch.launch.generate import make_prompts
     from repro_torch.models.model import decode_step, forward, init_decode_state
 
-    mcfg = next(s.moe for s in cfg.all_specs() if s.moe is not None)
-    free = with_capacity_factor(cfg, mcfg.n_experts / mcfg.top_k)
-    factor = next(s.moe for s in free.all_specs() if s.moe is not None).capacity_factor
     B, P = DECODE["requests"], DECODE["prompt_len"]
-    # C as moe_fwd computes it, for the decode's T = B and the forward's B·P
-    caps = {T: max(1, int(factor * T * mcfg.top_k / mcfg.n_experts)) for T in (B, B * P)}
-    if any(c < T for T, c in caps.items()):
-        fails.append(f"fwd vs decode: capacity {caps} drops tokens")
+    mcfg = next((s.moe for s in cfg.all_specs() if s.moe is not None), None)
+    free, factor, caps = cfg, None, None
+    if mcfg is not None:
+        free = with_capacity_factor(cfg, mcfg.n_experts / mcfg.top_k)
+        factor = next(s.moe for s in free.all_specs() if s.moe is not None).capacity_factor
+        # C as moe_fwd computes it, for the decode's T = B and the forward's B·P
+        caps = {T: max(1, int(factor * T * mcfg.top_k / mcfg.n_experts)) for T in (B, B * P)}
+        if any(c < T for T, c in caps.items()):
+            fails.append(f"fwd vs decode: capacity {caps} drops tokens")
     prompts = make_prompts(cfg, B, P, seed=1, device="cuda")
     ops.reset_launch_counts()
     with torch.no_grad():
@@ -3223,7 +3257,7 @@ def fwd_vs_decode_run(torch, cfg, params, fails):
         dec = torch.cat(steps, dim=1)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    check_train_launches(f"fwd vs decode {DEEPSEEK}", launches,
+    check_train_launches(f"fwd vs decode {cfg.name}", launches,
                          expected_train_launches(moe_layer_count(cfg), P + 1, 0), fails)
     scale = full.abs().max().item()
     err = (full - dec).abs().max().item()
@@ -3239,63 +3273,125 @@ def fwd_vs_decode_run(torch, cfg, params, fails):
            "launches": launches}
     if not (res["finite"] and err <= FWD_DECODE_REL * scale
             and all(g < NEAR_TIE for g in gaps)):
-        fails.append(f"fwd vs decode {DEEPSEEK}: {res}")
-    log(f"[decode] {DEEPSEEK} drop-free forward vs decode {json.dumps(res)}")
+        fails.append(f"fwd vs decode {cfg.name}: {res}")
+    label = "drop-free forward" if mcfg is not None else "forward"
+    log(f"[{tag}] {cfg.name} {label} vs decode {json.dumps(res)}")
     del full, dec, states, steps
     return launches
 
 
-def decode_smoke_run(torch, arch, steps, batch, fails):
-    """``decode_step`` of ``arch``'s smoke config teacher-forced over
-    ``steps`` tokens on the card and on the CPU from the same weights:
-    every step's logits and the final states within
-    ``DECODE_SMOKE_TOL``, the MoE launches exact.  Returns the card's
+def seeded_lora(torch, params, seed=0):
+    """Set every LoRA ``qb`` and ``ob`` of ``params`` (CPU tensors) to
+    seeded normals of std ``1/sqrt(rank)``, in place: at init they are
+    zero, and a shared block's delta with them."""
+    gen = torch.Generator().manual_seed(seed)
+    for sp in params["stacks"]:
+        for lora in sp["lora"]:
+            for name in ("qb", "ob") if lora is not None else ():
+                t = lora[name]
+                t.copy_(torch.randn(t.shape, generator=gen) / t.shape[-2] ** 0.5)
+    return params
+
+
+def smoke_params(torch, cfg):
+    """The smoke config's seeded weights on the CPU, LoRA deltas nonzero."""
+    from repro_torch.models.model import init_params
+
+    return seeded_lora(torch, init_params(cfg, torch.Generator().manual_seed(0),
+                                          device="cpu"))
+
+
+def nudged(torch, tree, gen):
+    """``tree`` with every float32 leaf moved one ulp up or down at random."""
+    from repro_torch.models import nn
+
+    def one(t):
+        up = torch.rand(t.shape, generator=gen) < 0.5
+        return torch.nextafter(t, torch.where(up, torch.inf, -torch.inf))
+
+    return nn.tree_map(one, tree)
+
+
+def within(got, want, tol, spread):
+    """``|got - want| <= tol·(1 + |want|) + spread`` everywhere → ``(ok,
+    the largest excess over tol·(1 + |want|))``."""
+    excess = ((got - want).abs() - tol * (1 + want.abs())).max().item()
+    return excess <= spread, excess
+
+
+def cpu_spread(torch, fn, params):
+    """The CPU's own float32 spread of ``fn(params)`` (a list of
+    tensors): per output, the largest change over ``SPREAD_NUDGES`` runs
+    from weights moved one ulp each at random (``nudged``)."""
+    gen = torch.Generator().manual_seed(SPREAD_SEED)
+    base = fn(params)
+    spread = [0.0] * len(base)
+    for _ in range(SPREAD_NUDGES):
+        spread = [max(sp, (a - b).abs().max().item())
+                  for sp, a, b in zip(spread, base, fn(nudged(torch, params, gen)))]
+    return spread
+
+
+def decode_smoke_run(torch, arch, steps, batch, fails, tag="decode"):
+    """``decode_step`` of ``arch``'s smoke config (LoRA deltas nonzero)
+    teacher-forced over ``steps`` tokens on the card and on the CPU from
+    the same weights: every step's logits and the final states within
+    ``DECODE_SMOKE_TOL``, for the archs of ``SPREAD_ARCHS`` plus the
+    CPU's own one-ulp spread; the MoE launches exact.  Returns the card's
     counts."""
     import numpy as np
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
     from repro_torch.models import nn
-    from repro_torch.models.model import decode_step, init_decode_state, init_params
+    from repro_torch.models.model import decode_step, init_decode_state
 
     cfg = get_smoke_config(arch)
-    cpu_p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu_p = smoke_params(torch, cfg)
     shape = (batch, steps) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, shape)
                             .astype(np.int32))
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        p = tree_to(cpu_p, dev)
+
+    def run(params, dev):
+        p = tree_to(params, dev)
         st = init_decode_state(cfg, batch, steps + 2, device=dev)
         t_dev = toks.to(dev)
-        ops.reset_launch_counts()
         outs = []
         for t in range(steps):
             cur = torch.full((batch,), t, dtype=torch.int32, device=dev)
             lg, st = decode_step(p, cfg, t_dev[:, t:t + 1], st, cur)
             outs.append(lg.cpu())
-        runs[dev] = (torch.cat(outs, dim=1), nn.tree_leaves(tree_to(st, "cpu")),
-                     ops.launch_counts())
-    (l0, s0, _), (l1, s1, launches) = runs["cpu"], runs["cuda"]
+        return [torch.cat(outs, dim=1)] + nn.tree_leaves(tree_to(st, "cpu"))
+
+    host = run(cpu_p, "cpu")
+    ops.reset_launch_counts()
+    card = run(cpu_p, "cuda")
+    launches = ops.launch_counts()
     tol = DECODE_SMOKE_TOL
-    lerr = (l0 - l1).abs().max().item()
-    serr = max((a - b).abs().max().item() for a, b in zip(s0, s1))
-    ok = (torch.allclose(l1, l0, atol=tol, rtol=tol)
-          and all(torch.allclose(b, a, atol=tol, rtol=tol) for a, b in zip(s0, s1)))
-    res = {"arch": arch, "steps": steps, "batch": batch, "logits_max_abs_err": lerr,
-           "states_max_abs_err": serr, "tolerance": tol}
-    if not ok:
+    spread = (cpu_spread(torch, lambda p: run(p, "cpu"), cpu_p) if arch in SPREAD_ARCHS
+              else [0.0] * len(host))
+    checks = [within(b, a, tol, sp) for a, b, sp in zip(host, card, spread)]
+    res = {"arch": arch, "steps": steps, "batch": batch,
+           "logits_max_abs_err": (host[0] - card[0]).abs().max().item(),
+           "states_max_abs_err": max((a - b).abs().max().item()
+                                     for a, b in zip(host[1:], card[1:])),
+           "tolerance": tol, "max_excess_over_tolerance": max(e for _, e in checks)}
+    if arch in SPREAD_ARCHS:
+        res["cpu_one_ulp_spread"] = {"logits": spread[0], "states_max": max(spread[1:])}
+    if not all(ok for ok, _ in checks):
         fails.append(f"decode smoke {arch}: cuda != cpu {res}")
     check_train_launches(f"decode smoke {arch} ({steps} steps)", launches,
                          expected_train_launches(moe_layer_count(cfg), steps, 0), fails)
-    log(f"[decode] smoke cuda vs cpu {json.dumps(res)}")
+    log(f"[{tag}] smoke cuda vs cpu {json.dumps(res)}")
     return launches
 
 
-def train_deepseek_run(torch, full, smi, fails):
-    """deepseek-v2-lite at published widths cut to its dense layer 0 and
-    one MoE layer, ``TRAIN_DEEPSEEK_STEPS`` steps of ``train_loop`` at
-    B=8, S=256: finite losses, none skipped, the MoE launches exact."""
+def train_loop_run(torch, cfg, smi, fails, steps, remat=False, active=None, tag="train"):
+    """``steps`` steps of ``train_loop`` on ``cfg`` at ``TRAIN_DATA`` (B=8,
+    S=256), AdamW defaults, warmup ``TRAIN_WARMUP``: finite losses, none
+    skipped, the MoE launches exact (remat runs each forward twice).
+    ``active``: the parameters a token meets (default all of them), for
+    the float32 share ``6·active·tokens / time``.  Returns the counts."""
     import statistics
 
     from repro_torch import optim
@@ -3304,40 +3400,48 @@ def train_deepseek_run(torch, full, smi, fails):
     from repro_torch.launch.train import train_loop
     from repro_torch.models.model import param_bytes
 
+    n_params = param_bytes(cfg) // 4
+    active = n_params if active is None else active
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = train_loop(cfg, DataConfig(**TRAIN_DATA), optim.AdamWConfig(), steps=steps,
+                     warmup=TRAIN_WARMUP, remat=remat, log_every=0, device="cuda")
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_DATA["seq_len"] * TRAIN_DATA["global_batch"]
+    med = statistics.median(rep.step_seconds)
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "active_params": active, "batch": TRAIN_DATA, "remat": remat,
+           "steps": rep.steps_run, "losses": rep.losses, "step_seconds": rep.step_seconds,
+           "median_ms_per_step": med * 1e3, "tokens_per_s": tokens / med,
+           "fp32_peak_share_active": 6.0 * active * tokens / med / PEAK_FLOPS["float32"],
+           "peak_device_memory_GiB": peak / 2**30, "skipped": rep.skipped,
+           "launches": launches, "card": smi}
+    log(f"[{tag}] {cfg.name} {json.dumps(res)}")
+    if rep.skipped or not all(math.isfinite(v) for v in rep.losses):
+        fails.append(f"train {cfg.name}: losses {rep.losses}, skipped {rep.skipped}")
+    check_train_launches(f"train {cfg.name}", launches, expected_train_launches(
+        moe_layer_count(cfg), steps * (2 if remat else 1), steps), fails)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_deepseek_run(torch, full, smi, fails):
+    """deepseek-v2-lite at published widths cut to its dense layer 0 and
+    one MoE layer, ``TRAIN_DEEPSEEK_STEPS`` steps of ``train_loop``."""
+    from repro_torch.models.model import param_bytes
+
     cfg = dataclasses.replace(full, stacks=tuple(
         (pat, n) for (pat, _), n in zip(full.stacks, TRAIN_DEEPSEEK_STACKS)))
     n_params = param_bytes(cfg) // 4
     mcfg = cfg.stacks[1][0][0].moe
     expert = 3 * mcfg.n_experts * cfg.d_model * mcfg.d_ff_expert
-    active = n_params - expert + expert * mcfg.top_k // mcfg.n_experts
     log(f"[train] {DEEPSEEK}: depth cut from {full.n_layers} to {cfg.n_layers} layers "
         f"(layer 0 dense, one MoE layer; {n_params / 1e9:.3f} G parameters), widths "
         "as published")
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    rep = train_loop(cfg, DataConfig(**TRAIN_DATA), optim.AdamWConfig(),
-                     steps=TRAIN_DEEPSEEK_STEPS, warmup=TRAIN_WARMUP, log_every=0,
-                     device="cuda")
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    tokens = TRAIN_DATA["seq_len"] * TRAIN_DATA["global_batch"]
-    med = statistics.median(rep.step_seconds)
-    res = {"arch": DEEPSEEK, "layers": cfg.n_layers, "params": n_params,
-           "active_params": active, "batch": TRAIN_DATA, "steps": rep.steps_run,
-           "losses": rep.losses, "step_seconds": rep.step_seconds,
-           "median_ms_per_step": med * 1e3, "tokens_per_s": tokens / med,
-           "fp32_peak_share_active": 6.0 * active * tokens / med / PEAK_FLOPS["float32"],
-           "peak_device_memory_GiB": peak / 2**30, "skipped": rep.skipped,
-           "launches": launches, "card": smi}
-    log(f"[train] {DEEPSEEK} {json.dumps(res)}")
-    if rep.skipped or not all(math.isfinite(v) for v in rep.losses):
-        fails.append(f"train {DEEPSEEK}: losses {rep.losses}, skipped {rep.skipped}")
-    check_train_launches(f"train {DEEPSEEK}", launches,
-                         expected_train_launches(1, TRAIN_DEEPSEEK_STEPS,
-                                                 TRAIN_DEEPSEEK_STEPS), fails)
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches
+    return train_loop_run(torch, cfg, smi, fails, TRAIN_DEEPSEEK_STEPS,
+                          active=n_params - expert + expert * mcfg.top_k // mcfg.n_experts)
 
 
 def decode_phase(torch, smi, rows):
@@ -3391,6 +3495,214 @@ def decode_phase(torch, smi, rows):
     if fails:
         fail("; ".join(fails))
     log(f"[decode] phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# [ssm]: the recurrent mixers, zamba2-2.7b and xlstm-350m, shared blocks
+# --------------------------------------------------------------------- #
+SSM_ARCHS = ("zamba2-2.7b", "xlstm-350m")
+# zamba2's activations at B=8, S=256 without remat would pass the card's
+# 80 GB beside its 41 GB of training state (params, grads, AdamW's m, v)
+SSM_REMAT = {"zamba2-2.7b": True, "xlstm-350m": False}
+SSM_TRAIN_STEPS = 4
+SSM_TRACED_STEPS = 1
+# xlstm's exponential gates carry a one-ulp change of its smoke weights
+# past DECODE_SMOKE_TOL (its states within 10 decode steps, 1.9e-4 on the
+# CPU) and TRAIN_SMOKE_TOL (its gradient norms after two AdamW steps,
+# 6.3e-3 relative): its card runs are held to the CPU's within the
+# tolerance plus the CPU's own spread over SPREAD_NUDGES such changes
+SPREAD_ARCHS = ("xlstm-350m",)
+SPREAD_NUDGES, SPREAD_SEED = 4, 0
+SSM_FORWARD = {"batch": 2, "seq": 21}  # the smoke chunk is 8: the last one pads
+SHARED_LORA_RANK = 8
+
+
+def forward_smoke_run(torch, arch, fails):
+    """``forward`` of ``arch``'s smoke config (LoRA deltas nonzero) on the
+    card and on the CPU from the same weights and tokens: the logits
+    within ``DECODE_SMOKE_TOL`` (plus the CPU's one-ulp spread for
+    ``SPREAD_ARCHS``).  Returns the card's launch counts (none)."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import forward
+
+    cfg = get_smoke_config(arch)
+    cpu_p = smoke_params(torch, cfg)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (SSM_FORWARD["batch"], SSM_FORWARD["seq"])).astype(np.int32))
+
+    def run(params, dev):
+        with torch.no_grad():
+            return [forward(tree_to(params, dev), cfg, toks.to(dev))[0].cpu()]
+
+    host = run(cpu_p, "cpu")
+    ops.reset_launch_counts()
+    card = run(cpu_p, "cuda")
+    launches = ops.launch_counts()
+    spread = cpu_spread(torch, lambda p: run(p, "cpu"), cpu_p)[0] \
+        if arch in SPREAD_ARCHS else 0.0
+    ok, excess = within(card[0], host[0], DECODE_SMOKE_TOL, spread)
+    res = {"arch": arch, **SSM_FORWARD, "logits_max_abs_err": (card[0] - host[0]).abs()
+           .max().item(), "tolerance": DECODE_SMOKE_TOL,
+           "max_excess_over_tolerance": excess, "cpu_one_ulp_spread": spread,
+           "finite": bool(torch.isfinite(card[0]).all())}
+    if not (ok and res["finite"]):
+        fails.append(f"forward smoke {arch}: cuda != cpu {res}")
+    check_train_launches(f"forward smoke {arch}", launches,
+                         expected_train_launches(moe_layer_count(cfg), 1, 0), fails)
+    log(f"[ssm] smoke forward cuda vs cpu {json.dumps(res)}")
+    return launches
+
+
+def shared_config(cfg):
+    """``cfg`` (a one-block pattern) as the pattern (block, shared block)
+    × 2 repeats, LoRA rank ``SHARED_LORA_RANK``."""
+    blk = cfg.stacks[0][0][0]
+    shared = dataclasses.replace(blk, shared=True, lora_rank=SHARED_LORA_RANK)
+    return dataclasses.replace(cfg, name=f"{cfg.name}-shared",
+                               stacks=(((blk, shared), 2),))
+
+
+def shared_lifecycle(torch, plane):
+    """The scripted lifecycle of a config with tinyllama-1.1b's smoke
+    widths and a shared attention block (LoRA deltas nonzero), served on
+    ``plane`` on the card and on the CPU: every observable field equal,
+    the card's launches exact (``flash_attention`` once a layer a
+    prefill, ``paged_attention`` once a layer a batched step, the copies
+    once a flush plus the prewarm).  Returns the card's counts."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import TppConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import lifecycle_trace
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    cfg = shared_config(get_smoke_config("tinyllama-1.1b"))
+    params = smoke_params(torch, cfg)
+    ecfg = EngineConfig(page_size=4, num_fast=10, num_slow=64, recent_pages=1,
+                        topk_pages=2, tpp=TppConfig(demote_budget=16, promote_budget=8),
+                        data_plane=plane)
+    calls = {}
+    step, prefill = ServingEngine._batched_step_impl, ServingEngine._prefill_forward
+
+    def counted_step(self, *args):
+        calls["steps"] += 1
+        return step(self, *args)
+
+    def counted_prefill(self, *args):
+        calls["prefills"] += 1
+        return prefill(self, *args)
+
+    traces = []  # the CPU's, then the card's
+    for dev in ("cpu", "cuda"):
+        calls.update(steps=0, prefills=0)
+        ServingEngine._batched_step_impl = counted_step
+        ServingEngine._prefill_forward = counted_prefill
+        try:
+            ops.reset_launch_counts()  # the cache's prewarm copies count too
+            eng = ServingEngine(cfg, tree_to(params, dev), ecfg, device=dev)
+            traces.append(lifecycle_trace(eng, cfg.vocab))
+            launches = ops.launch_counts()
+        finally:
+            ServingEngine._batched_step_impl, ServingEngine._prefill_forward = step, prefill
+    name = f"[ssm] shared-block lifecycle, {plane} plane"
+    host, card = traces
+    differ = [f for f in host if host[f] != card[f]]
+    if differ:
+        fail(f"{name}: cuda != cpu in {differ}")
+    check_launches(name, launches, eng.kv, cfg.n_layers, calls["steps"], calls["prefills"])
+    vm = card["vmstat"]
+    if vm["pgdemote_total"] <= 0:
+        fail(f"{name}: no page was demoted")
+    log(f"{name} cuda == cpu: {sum(len(t) for t in card['tokens'])} tokens, "
+        f"{calls['steps']} batched steps, {calls['prefills']} prefills, demoted "
+        f"{vm['pgdemote_total']}, promoted {vm['pgpromote_total']}, launches "
+        f"{json.dumps(launches)}")
+    return launches
+
+
+def ssm_full_width(torch, arch, smi, fails):
+    """``arch`` at published widths (LoRA deltas nonzero): greedy
+    generation and a profile through ``decode_step``, the forward against
+    64 decode steps; then ``SSM_TRAIN_STEPS`` steps of ``train_loop``.
+    Returns each run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import check_fits
+    from repro_torch.models.model import init_params, param_bytes
+
+    cfg = get_config(arch)
+    check_fits(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = seeded_lora(torch, init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    torch.cuda.synchronize()
+    log(f"[ssm] {arch} full width: {cfg.n_layers} layers, d={cfg.d_model}, params "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G float32 "
+        f"({param_bytes(cfg) / 1e9:.2f} GB), built in {time.perf_counter() - t1:.1f} s")
+    launches = {f"ssm/{arch}": greedy_decode_run(torch, cfg, params, smi, fails, tag="ssm")}
+    launches[f"ssm/{arch} fwd vs decode"] = fwd_vs_decode_run(torch, cfg, params, fails,
+                                                              tag="ssm")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not fails:
+        launches[f"ssm/{arch} train"] = train_loop_run(
+            torch, cfg, smi, fails, SSM_TRAIN_STEPS, remat=SSM_REMAT[arch], tag="ssm")
+        train_profile(torch, cfg, SSM_REMAT[arch])
+    return launches
+
+
+def train_profile(torch, cfg, remat):
+    """One untraced, then ``SSM_TRACED_STEPS`` traced training steps of
+    ``cfg`` at ``TRAIN_DATA`` (where a step's time goes: busy, idle,
+    launches, top ops; trace in ``build/profile/train_<arch>/``)."""
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.launch.train import make_train_step, profile_train_steps, to_device
+    from repro_torch.models.model import init_params
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    oc = optim.AdamWConfig()
+    opt = optim.init(params, oc)
+    step_fn = make_train_step(cfg, oc, remat=remat, donate=True)
+    batches = make_batches(DataConfig(**TRAIN_DATA), cfg)
+    params, opt, m = step_fn(params, opt, to_device(next(batches), "cuda"))
+    float(m["loss"])
+    prof = profile_train_steps(step_fn, params, opt, batches, "cuda",
+                               str(ROOT / "build" / "profile" / f"train_{cfg.name}"),
+                               steps=SSM_TRACED_STEPS)
+    log(f"[ssm] {cfg.name} traced training {json.dumps(prof)}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ssm_phase(torch, smi):
+    """The [ssm] phase: zamba2-2.7b and xlstm-350m at full width (decode,
+    forward against decode, training); their smoke configs cuda against
+    cpu (forward, three training steps, decode); the shared-block serve
+    lifecycle on both planes.  Returns each run's launch counts."""
+    t0 = time.perf_counter()
+    fails: list = []
+    launches = {}
+    for arch in SSM_ARCHS:
+        launches.update(ssm_full_width(torch, arch, smi, fails))
+        if fails:
+            fail("; ".join(fails))
+    for arch in SSM_ARCHS:
+        launches[f"ssm smoke/{arch} forward"] = forward_smoke_run(torch, arch, fails)
+        launches[f"ssm smoke/{arch} train"] = train_smoke_phase(torch, arch, fails,
+                                                                tag="ssm")
+        launches[f"ssm smoke/{arch} decode"] = decode_smoke_run(
+            torch, arch, fails=fails, tag="ssm", **DECODE_SMOKE)
+    if fails:
+        fail("; ".join(fails))
+    for plane in ("batched", "reference"):
+        launches[f"ssm/shared-block lifecycle, {plane}"] = shared_lifecycle(torch, plane)
+    log(f"[ssm] phase took {time.perf_counter() - t0:.1f} s")
     return launches
 
 

@@ -1,7 +1,9 @@
 """Serving engine: continuous batching over the tiered paged KV cache.
 
 Counterpart of ``repro/serving/engine.py`` for GQA attention archs with
-a dense or an MoE FFN.  Prefill runs ``kernels.ops.flash_attention`` per
+a dense or an MoE FFN; a zamba2-style shared block serves from its base
+parameters and adds its per-repeat LoRA delta after ``wo``, as in the
+JAX engine.  Prefill runs ``kernels.ops.flash_attention`` per
 layer over the prompt, and MoE blocks route through the fused
 ``kernels.ops.moe_route`` with ``moe_dispatch`` and ``moe_combine``
 around the expert products, on both data planes

@@ -21,7 +21,8 @@ and the recurrent archs' bfloat16 trees, against the JAX package.
   up to 7.1e-4 apart and tinyllama-1.1b's is 3.4e-4 from the port's.
 
 JAX weights reach the port through ``params_from_jax`` (bfloat16 leaves
-bit for bit); the CPU.
+bit for bit); the CPU.  zamba2's training state round-trips through a
+checkpoint with its None blocks.
 """
 
 import dataclasses
@@ -124,3 +125,22 @@ def test_bfloat16_tree_loss_matches_jax(arch, build):
                                             device="cpu", dtype=torch.bfloat16)) == dtypes
     lt, _ = tmodel.loss_fn(tp, tcfg, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert abs(float(lt) - float(lj)) <= 2.0 ** -8 * abs(float(lj)), (float(lt), float(lj))
+
+
+def test_zamba2_state_checkpoints_with_its_none_blocks(tmp_path):
+    """zamba2's training state (``None`` in ``blocks``, ``shared`` and
+    ``lora``) round-trips through a checkpoint, leaf for leaf."""
+    from repro_torch import optim
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import nn as tnn
+
+    cfg = get_smoke_config("zamba2-2.7b")
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tree = {"params": params, "opt": optim.init(params, optim.AdamWConfig())}
+    assert "None" in tnn.tree_signature(params)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, tree, blocking=True)
+    step, got = mgr.restore_latest(tree)
+    assert step == 1 and tnn.tree_signature(got) == tnn.tree_signature(tree)
+    for a, b in zip(tnn.tree_leaves(tree), tnn.tree_leaves(got)):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -127,7 +127,8 @@ def test_cosine_schedule_and_global_norm_match_jax():
 # --------------------------------------------------------------------- #
 # offload plan
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "phi3.5-moe-42b-a6.6b", "zamba2-2.7b",
+                                  "xlstm-350m"])
 @pytest.mark.parametrize("frac", [3, 7])
 def test_offload_plan_equals_jax_leaf_for_leaf(arch, frac):
     jp = jax_init_params(jax.random.PRNGKey(0), jax_smoke_config(arch))

@@ -46,7 +46,7 @@ def jax_pair(arch, seed=0):
 
 
 @pytest.mark.parametrize("accum", [1, 2])
-@pytest.mark.parametrize("arch", [TINY, "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", [TINY, "phi3.5-moe-42b-a6.6b", "zamba2-2.7b"])
 def test_train_step_matches_jax(arch, accum):
     """One step at the full learning rate.  AdamW's first step moves an
     element by ``lr·g/(|g|+eps)``, so an element whose gradient is at

@@ -203,7 +203,8 @@ def test_loss_variants_match_jax(arch, variant):
     check_loss_and_grads(arch, make_batch(cfg, seed=3, mask=variant == "loss_mask"), **kw)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "phi3.5-moe-42b-a6.6b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "phi3.5-moe-42b-a6.6b", "gemma3-4b",
+                                  "zamba2-2.7b"])
 def test_remat_gradients_equal_plain_bit_for_bit(arch):
     """Recomputing each block in backward runs the same operations."""
     _, _, tcfg, tp = model_pair(arch)
