@@ -194,8 +194,7 @@ nonzero; 2.07 G parameters) and xlstm-350m (21 mLSTM, 3 sLSTM; 0.467 G)
 at published widths through ``launch/generate.py`` as deepseek above
 (no kernel launch on either path), the chunked forward against 64
 recurrent decode steps under the same rule, then 4 steps of
-``train_loop`` at B=8, S=256 (zamba2 with ``remat=True``) and a traced
-step (busy, idle, launches, top ops); their smoke
+``train_loop`` at B=8, S=256 (zamba2 with ``remat=True``); their smoke
 configs cuda vs cpu: ``forward`` at S=21 (the last chunk pads), three
 training steps within ``TRAIN_SMOKE_TOL`` and 10 decode steps within
 ``DECODE_SMOKE_TOL``, xlstm's forward and decode plus the CPU's own
@@ -3506,7 +3505,6 @@ SSM_ARCHS = ("zamba2-2.7b", "xlstm-350m")
 # 80 GB beside its 41 GB of training state (params, grads, AdamW's m, v)
 SSM_REMAT = {"zamba2-2.7b": True, "xlstm-350m": False}
 SSM_TRAIN_STEPS = 4
-SSM_TRACED_STEPS = 1
 # xlstm's exponential gates carry a one-ulp change of its smoke weights
 # past DECODE_SMOKE_TOL (its states within 10 decode steps, 1.9e-4 on the
 # CPU) and TRAIN_SMOKE_TOL (its gradient norms after two AdamW steps,
@@ -3651,33 +3649,7 @@ def ssm_full_width(torch, arch, smi, fails):
     if not fails:
         launches[f"ssm/{arch} train"] = train_loop_run(
             torch, cfg, smi, fails, SSM_TRAIN_STEPS, remat=SSM_REMAT[arch], tag="ssm")
-        train_profile(torch, cfg, SSM_REMAT[arch])
     return launches
-
-
-def train_profile(torch, cfg, remat):
-    """One untraced, then ``SSM_TRACED_STEPS`` traced training steps of
-    ``cfg`` at ``TRAIN_DATA`` (where a step's time goes: busy, idle,
-    launches, top ops; trace in ``build/profile/train_<arch>/``)."""
-    from repro_torch import optim
-    from repro_torch.data import DataConfig, make_batches
-    from repro_torch.launch.train import make_train_step, profile_train_steps, to_device
-    from repro_torch.models.model import init_params
-
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    oc = optim.AdamWConfig()
-    opt = optim.init(params, oc)
-    step_fn = make_train_step(cfg, oc, remat=remat, donate=True)
-    batches = make_batches(DataConfig(**TRAIN_DATA), cfg)
-    params, opt, m = step_fn(params, opt, to_device(next(batches), "cuda"))
-    float(m["loss"])
-    prof = profile_train_steps(step_fn, params, opt, batches, "cuda",
-                               str(ROOT / "build" / "profile" / f"train_{cfg.name}"),
-                               steps=SSM_TRACED_STEPS)
-    log(f"[ssm] {cfg.name} traced training {json.dumps(prof)}")
-    del params, opt
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
 def ssm_phase(torch, smi):
