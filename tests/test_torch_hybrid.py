@@ -13,7 +13,8 @@ and the recurrent archs' bfloat16 trees, against the JAX package.
   or by ``cast_tree`` (every leaf bfloat16), labels the tokens: the
   port's tree keeps JAX's dtypes leaf for leaf, and its loss equals
   JAX's to bfloat16's precision, within its unit roundoff 2^-8 of JAX's
-  loss.  Not within PR 21's 1e-4: the two frameworks round bfloat16
+  loss.  Not within the 1e-4 that ``test_torch_train_models.py`` holds
+  the MoE router's bfloat16 loss to: the two frameworks round bfloat16
   intermediates in other places (torch rounds ``silu``, ``sigmoid`` and
   ``softplus`` once, XLA's differ in 16-39% of bfloat16 inputs), and
   these stacks of exponential gates carry that to the loss: reached
