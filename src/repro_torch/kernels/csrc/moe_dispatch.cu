@@ -24,91 +24,189 @@
 //   moe_dispatch is moe_combine with unit gates (dx[t] = sum over j of
 //   dxe[slot[t * k + j]]), so it needs no kernel of its own.
 //
-// Bound: bytes.  At phi3.5-moe's decode (16 slots, T = 8, d = 4096) each
-// kernel moves about 0.26 MB, 0.08 us at 3.35 TB/s: launch latency sets
-// the time.  Design: a flat grid over 16-byte vectors of the output, four
-// a thread in flight, so even a few rows spread over many SMs; each
-// thread reads the index of its row, which the row's other threads read
-// from the same cache line.  moe_combine_bwd is bound by bytes too: at
-// phi3.5-moe's training shape (T = 2048, E * C = 5120 slots, d = 4096) it
-// reads dy and the kept rows of ye and writes all of dye; the memset
-// writes every slot once more, which a kernel that zeroes only the empty
-// slots (it would need the route's src) would save.
+// What bounds them.  Both move bytes and do (almost) no arithmetic.  At
+// decode (phi3.5-moe: T = 8, d = 4096, 16 slots; deepseek-v2-lite: T = 2
+// or 8, d = 2048, 64 slots) each moves 0.1-0.6 MB, 0.03-0.2 us at
+// 3.35 TB/s, so latency sets the time: the launch, and each round trip to
+// L2 or HBM that a thread must wait for before it can issue the next.  At
+// deepseek's T = 4096 (24,576 assignments, 30,720 slots of 8 KB) they
+// stream 235-285 MB and HBM's rate sets the time.  The design:
+//
+// 1. Indices staged once.  A block covers a tile of rows (tokens for the
+//    combine, slots for the dispatch) × 16-byte column vectors.  Its
+//    threads load the tile's slot and gate (or src) entries in one
+//    coalesced pass into shared memory; after one __syncthreads() no
+//    thread reads an index from global memory again, where each of a
+//    row's d/4 threads used to read the same entries itself.
+// 2. All k rows in flight, the grid sized to the card.  A combine
+//    thread issues the loads of 8 row vectors at once (32 registers)
+//    before any arithmetic, then rounds in ascending j, so it waits on
+//    two round trips (indices, then rows) instead of one per gate and
+//    vector: the rows of 8 gates for one vector, or, past two waves of
+//    the card's resident threads (2048 an SM) where k <= 4, of 4 gates
+//    for 2 vectors or 2 gates for 4 (measured on the H100: 8 gates × 1
+//    vector is the faster at decode, 2 × 4 at phi3.5's T = 2048).  k > 8
+//    runs in groups of 8 in ascending order.  A dispatch thread moves
+//    one vector (two were slower at T = 2048 and 4096).  A block takes
+//    the power of two of threads (32-256) nearest below two blocks an
+//    SM, so a decode call spreads over tens to hundreds of SMs.
+//    d % 4 != 0 or a pointer off 16 bytes takes the element path with
+//    the same staging and plan.
+// 3. Programmatic dependent launch.  Both launch through
+//    cudaLaunchKernelEx with programmatic stream serialization, so the
+//    card may schedule their blocks while the previous kernel in the
+//    stream drains.  Each block first waits (griddepcontrol.wait) until
+//    that kernel has finished and its writes are visible, and only then
+//    reads any input: the dispatch's src is written by moe_route just
+//    before it, and the dispatch's backward fills its unit gates with
+//    torch.ones just before the combine.  Loads bypass L1 (ld.global.cg):
+//    no row is read twice by one SM.
+//
+// moe_combine_bwd is bound by bytes too: at phi3.5-moe's training shape
+// (T = 2048, E * C = 5120 slots, d = 4096) it reads dy and the kept rows
+// of ye and writes all of dye; the memset writes every slot once more,
+// which a kernel that zeroes only the empty slots (it would need the
+// route's src) would save.  It launches with <<<>>>.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
+constexpr int kThreads = 256;  // the most threads a block of any kernel here
+constexpr int kGroup = 8;      // row vectors a combine thread loads at once
+constexpr int kStageBytes = 48 * 1024;  // the combine's staged indices, at most
 
+// Wait until the previous kernel in the stream has completed and its
+// writes are visible (a no-op when launched without programmatic
+// serialization).
+__device__ __forceinline__ void wait_for_previous_kernel() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// N = 4 floats (16 bytes, aligned) or 1 float, cached in L2 only.
+template <int N>
+__device__ __forceinline__ void load_cg(const float* p, float (&x)[N]) {
+  if constexpr (N == 4) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    x[0] = __ldcg(p);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_n(float* p, const float (&x)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    p[0] = x[0];
+  }
+}
+
+// Block (X, Y): Y slots of the tile, X threads across a row's vectors,
+// one vector each.  blockIdx.x: the slot tile, blockIdx.y: the column
+// chunk.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
     moe_dispatch_kernel(const float* __restrict__ x,
                         const int32_t* __restrict__ src, float* __restrict__ xe,
                         int64_t rows, int d) {
-  const int n = kVec ? d / 4 : d;  // vectors a row
-  const int64_t total = rows * n;
-  const int64_t first = (static_cast<int64_t>(blockIdx.x) * kThreads * kUnroll) + threadIdx.x;
+  constexpr int N = kVec ? 4 : 1;
+  __shared__ int32_t s_src[kThreads];
+  const int n = d / N;  // vectors a row
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * blockDim.y;
+  const int here = rows - r0 < blockDim.y ? static_cast<int>(rows - r0) : blockDim.y;
+  wait_for_previous_kernel();
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  if (tid < here) s_src[tid] = __ldcg(src + r0 + tid);
+  __syncthreads();
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  if (static_cast<int>(threadIdx.y) >= here || c >= n) return;
+  const int t = s_src[threadIdx.y];
+  float v[N];
+  if (t >= 0) {
+    load_cg<N>(x + static_cast<int64_t>(t) * d + static_cast<int64_t>(c) * N, v);
+  } else {
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int64_t i = first + u * kThreads;
-    if (i >= total) break;
-    const int64_t s = i / n;
-    const int c = static_cast<int>(i - s * n);
-    const int t = __ldg(src + s);
-    if (kVec) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t >= 0) v = __ldg(reinterpret_cast<const float4*>(x + static_cast<int64_t>(t) * d) + c);
-      reinterpret_cast<float4*>(xe + s * d)[c] = v;
-    } else {
-      xe[s * d + c] = t >= 0 ? __ldg(x + static_cast<int64_t>(t) * d + c) : 0.f;
-    }
+    for (int q = 0; q < N; ++q) v[q] = 0.f;
   }
+  store_n<N>(xe + (r0 + threadIdx.y) * d + static_cast<int64_t>(c) * N, v);
 }
 
-template <bool kVec>
+// Block (X, Y) as the dispatch's, over Y tokens; each thread takes kVPT
+// vectors, X apart, and holds the rows of kG gates at once (kG * kVPT =
+// 8 vectors, 32 registers).  Dynamic shared memory holds the tile's
+// Y * k slots, then its Y * k gates.
+template <bool kVec, int kG, int kVPT>
 __global__ void __launch_bounds__(kThreads)
     moe_combine_kernel(const float* __restrict__ ye,
                        const int32_t* __restrict__ slot,
                        const float* __restrict__ vals, float* __restrict__ y,
                        int T, int d, int k, int drop) {
-  const int n = kVec ? d / 4 : d;
-  const int64_t total = static_cast<int64_t>(T) * n;
-  const int64_t first = (static_cast<int64_t>(blockIdx.x) * kThreads * kUnroll) + threadIdx.x;
+  constexpr int N = kVec ? 4 : 1;
+  extern __shared__ int32_t stage[];
+  const int n = d / N;
+  const int Y = blockDim.y;
+  const int t0 = blockIdx.x * Y;
+  const int tokens = min(Y, T - t0);
+  int32_t* s_slot = stage;
+  float* s_val = reinterpret_cast<float*>(stage + Y * k);
+  wait_for_previous_kernel();
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int64_t base = static_cast<int64_t>(t0) * k;
+  for (int i = tid; i < tokens * k; i += blockDim.x * Y) {
+    s_slot[i] = __ldcg(slot + base + i);
+    s_val[i] = __ldcg(vals + base + i);
+  }
+  __syncthreads();
+  const int tt = threadIdx.y;
+  if (tt >= tokens) return;
+  const int c0 = blockIdx.y * blockDim.x * kVPT + threadIdx.x;
+  const int32_t* ts = s_slot + tt * k;
+  const float* tg = s_val + tt * k;
+  float acc[kVPT][N];
+  for (int j0 = 0; j0 < k; j0 += kG) {
+    const int g = min(kG, k - j0);
+    float v[kG][kVPT][N];
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int64_t i = first + u * kThreads;
-    if (i >= total) break;
-    const int t = static_cast<int>(i / n);
-    const int c = static_cast<int>(i - static_cast<int64_t>(t) * n);
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int j = 0; j < k; ++j) {
-      const int s = __ldg(slot + static_cast<int64_t>(t) * k + j);
-      const float g = __ldg(vals + static_cast<int64_t>(t) * k + j);
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (s != drop) {
-        if (kVec) {
-          const float4 r = __ldg(reinterpret_cast<const float4*>(ye + static_cast<int64_t>(s) * d) + c);
-          v[0] = r.x;
-          v[1] = r.y;
-          v[2] = r.z;
-          v[3] = r.w;
-        } else {
-          v[0] = __ldg(ye + static_cast<int64_t>(s) * d + c);
+    for (int j = 0; j < kG; ++j) {  // the group's rows, all in flight
+      if (j < g) {
+        const int s = ts[j0 + j];
+#pragma unroll
+        for (int u = 0; u < kVPT; ++u) {
+          const int c = c0 + u * blockDim.x;
+          if (s != drop && c < n) {
+            load_cg<N>(ye + static_cast<int64_t>(s) * d + static_cast<int64_t>(c) * N,
+                       v[j][u]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < N; ++q) v[j][u][q] = 0.f;
+          }
         }
       }
+    }
 #pragma unroll
-      for (int q = 0; q < (kVec ? 4 : 1); ++q) {
-        const float p = __fmul_rn(v[q], g);
-        acc[q] = j == 0 ? p : __fadd_rn(acc[q], p);
+    for (int j = 0; j < kG; ++j) {  // then the rounding, ascending j
+      if (j < g) {
+        const float gate = tg[j0 + j];
+#pragma unroll
+        for (int u = 0; u < kVPT; ++u) {
+#pragma unroll
+          for (int q = 0; q < N; ++q) {
+            const float p = __fmul_rn(v[j][u][q], gate);
+            acc[u][q] = j0 + j == 0 ? p : __fadd_rn(acc[u][q], p);
+          }
+        }
       }
     }
-    if (kVec) {
-      reinterpret_cast<float4*>(y + static_cast<int64_t>(t) * d)[c] =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
-    } else {
-      y[static_cast<int64_t>(t) * d + c] = acc[0];
-    }
+  }
+  const int64_t row = static_cast<int64_t>(t0 + tt) * d;
+#pragma unroll
+  for (int u = 0; u < kVPT; ++u) {
+    const int c = c0 + u * blockDim.x;
+    if (c < n) store_n<N>(y + row + static_cast<int64_t>(c) * N, acc[u]);
   }
 }
 
@@ -174,11 +272,82 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int blocks_for(int64_t total) {
-  return static_cast<int>((total + kThreads * kUnroll - 1) / (kThreads * kUnroll));
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Streaming multiprocessors of the current device, read once per device.
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) {
+    int c = 0;
+    cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = c > 0 ? c : 132;
+  }
+  return counts[dev];
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+// The launch shape of `rows` rows of n vectors (16-byte or elements): a
+// block of X × Y threads, X a power of two across a row, Y rows; each
+// thread takes vpt vectors: `wide` once the work passes two waves of the
+// card's resident threads (2048 an SM), else 1.  The block takes the
+// power of two of threads, 32 to 256, nearest below two blocks an SM.
+struct Plan {
+  dim3 grid, block;
+  int vpt;
+};
+
+Plan plan(int64_t rows, int n, int max_y, int wide) {
+  const int sms = sm_count();
+  const int64_t total = rows * n;
+  Plan p;
+  p.vpt = total >= 2LL * sms * 2048 ? wide : 1;
+  const int64_t per_block = total / p.vpt / (2LL * sms);
+  int threads = 32;
+  while (threads < kThreads && 2LL * threads <= per_block) threads *= 2;
+  const int64_t cols = (n + p.vpt - 1) / p.vpt;
+  int x = 1;
+  while (x < threads && x < cols) x *= 2;
+  int64_t y = threads / x;
+  if (y > rows) y = rows;
+  if (y > max_y) y = max_y;
+  p.block = dim3(x, static_cast<unsigned>(y));
+  p.grid = dim3(static_cast<unsigned>((rows + y - 1) / y),
+                static_cast<unsigned>((cols + x - 1) / x));
+  return p;
+}
+
+// cudaLaunchKernelEx with programmatic stream serialization: the kernel
+// may start while the previous one in the stream drains, and waits for
+// it before its first read.
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), const Plan& p, size_t smem,
+                       cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = p.grid;
+  cfg.blockDim = p.block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// The combine at plan p: each thread holds 8 row vectors at once, the
+// rows of 8 gates (vpt 1), of 4 gates × 2 vectors or of 2 × 4.
+template <bool kVec, typename... Args>
+cudaError_t launch_combine(const Plan& p, size_t smem, cudaStream_t st, Args... args) {
+  switch (p.vpt) {
+    case 4: return launch_pdl(moe_combine_kernel<kVec, 2, 4>, p, smem, st, args...);
+    case 2: return launch_pdl(moe_combine_kernel<kVec, 4, 2>, p, smem, st, args...);
+    default: return launch_pdl(moe_combine_kernel<kVec, kGroup, 1>, p, smem, st, args...);
+  }
+}
 
 }  // namespace
 
@@ -187,38 +356,38 @@ extern "C" int moe_dispatch(const void* x, const void* src, void* xe,
                             int64_t rows, int d, void* stream) {
   if (rows < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = d % 4 == 0 && aligned16(x) && aligned16(xe);
-  const int64_t total = rows * (vec ? d / 4 : d);
+  const Plan p = plan(rows, vec ? d / 4 : d, kThreads, 1);
   auto st = static_cast<cudaStream_t>(stream);
   auto xp = static_cast<const float*>(x);
   auto sp = static_cast<const int32_t*>(src);
   auto op = static_cast<float*>(xe);
-  if (vec) {
-    moe_dispatch_kernel<true><<<blocks_for(total), kThreads, 0, st>>>(xp, sp, op, rows, d);
-  } else {
-    moe_dispatch_kernel<false><<<blocks_for(total), kThreads, 0, st>>>(xp, sp, op, rows, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(vec ? launch_pdl(moe_dispatch_kernel<true>, p, 0, st, xp, sp, op, rows, d)
+                              : launch_pdl(moe_dispatch_kernel<false>, p, 0, st, xp, sp, op, rows, d));
 }
 
 // ye (drop, d) float32 contiguous, drop = E * C; slot (T * k) int32 in
-// [0, drop]; vals (T, k) float32; y (T, d).
+// [0, drop]; vals (T, k) float32; y (T, d).  Any k: the tile's indices
+// must fit kStageBytes (k <= 6144).
 extern "C" int moe_combine(const void* ye, const void* slot, const void* vals,
                            void* y, int T, int d, int k, int drop,
                            void* stream) {
-  if (T < 1 || d < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kEntry = sizeof(int32_t) + sizeof(float);
+  if (T < 1 || d < 1 || k < 1 || k > kStageBytes / kEntry) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool vec = d % 4 == 0 && aligned16(ye) && aligned16(y);
-  const int64_t total = static_cast<int64_t>(T) * (vec ? d / 4 : d);
+  // at large shapes a thread takes more vectors where k leaves registers free
+  const int wide = k <= 2 ? 4 : k <= 4 ? 2 : 1;
+  const Plan p = plan(T, vec ? d / 4 : d, kStageBytes / (kEntry * k), wide);
+  const size_t smem = static_cast<size_t>(p.block.y) * k * kEntry;
   auto st = static_cast<cudaStream_t>(stream);
   auto yp = static_cast<const float*>(ye);
   auto sp = static_cast<const int32_t*>(slot);
   auto vp = static_cast<const float*>(vals);
   auto op = static_cast<float*>(y);
-  if (vec) {
-    moe_combine_kernel<true><<<blocks_for(total), kThreads, 0, st>>>(yp, sp, vp, op, T, d, k, drop);
-  } else {
-    moe_combine_kernel<false><<<blocks_for(total), kThreads, 0, st>>>(yp, sp, vp, op, T, d, k, drop);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      vec ? launch_combine<true>(p, smem, st, yp, sp, vp, op, T, d, k, drop)
+          : launch_combine<false>(p, smem, st, yp, sp, vp, op, T, d, k, drop));
 }
 
 // dy (T, d) float32 contiguous; ye (drop, d), drop = E * C; slot (T * k)

@@ -20,7 +20,10 @@ The JAX package runs these two steps in XLA around the expert einsums
 
 All three launch ``csrc/moe_dispatch.cu`` on the current CUDA stream and
 count their launches; the ``*_plain`` versions are what ``kernels.ops``
-runs for a CPU tensor.  Float32 only.
+runs for a CPU tensor.  Float32 only.  The dispatch and the combine
+launch with programmatic dependent launch: their blocks may be scheduled
+while the previous kernel in the stream drains, and wait for it to
+finish before they read any input.
 
 :class:`Dispatch` and :class:`Combine` are their ``torch.autograd``
 Functions, over the kernels or over the plain versions.  The combine's

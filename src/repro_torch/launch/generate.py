@@ -90,9 +90,12 @@ def profile_decode_steps(cfg: ModelConfig, params: Any, states: Any, tokens: tor
     caches).  Writes the per-op table (``ops.txt``) and a Chrome trace
     (``trace.json``) to ``out_dir``; returns per step the wall time, the
     device busy time (the sum of the device events' own time: one
-    stream), the idle share, the device launches and the top device ops.
+    stream), the idle share, the device launches, the top device ops and
+    the port's own kernels in place (launches a step, µs a launch).
     Tracing slows the host; take step times from an untraced run."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import kernels_in_place
 
     device = tokens.device
     B = tokens.shape[0]
@@ -128,7 +131,8 @@ def profile_decode_steps(cfg: ModelConfig, params: Any, states: Any, tokens: tor
             "device_launches_per_step":
                 sum(1 for e in events if e.get("cat") == "kernel") / steps,
             "top_device_ops_ms_per_step": {
-                e.key: e.self_device_time_total / 1e3 / steps for e in top}}
+                e.key: e.self_device_time_total / 1e3 / steps for e in top},
+            "port_kernels_in_place": kernels_in_place(ka, steps)}
 
 
 def main() -> None:

@@ -113,7 +113,13 @@ def route_case(name):
     rng = np.random.default_rng(sum(map(ord, name)))
     T, d, E, k, factor = {"decode": (8, 64, 16, 2, 1.25), "prefill": (47, 64, 16, 2, 1.25),
                           "drop_free": (47, 64, 16, 2, 8.0), "ties": (8, 32, 16, 3, 1.25),
-                          "64e_top6": (100, 48, 64, 6, 1.25)}[name]
+                          "64e_top6": (100, 48, 64, 6, 1.25),
+                          # deepseek-v2-lite's decode routes: E=64, k=6, C=1
+                          "deepseek_decode_T2": (2, 48, 64, 6, 1.25),
+                          "deepseek_decode_T8": (8, 48, 64, 6, 1.25),
+                          "k8": (16, 32, 64, 8, 1.25), "T1": (1, 64, 16, 2, 1.25),
+                          "all_dropped": (8, 64, 16, 2, 1.25),
+                          "odd_d": (9, 37, 16, 2, 1.25)}[name]
     x = rng.standard_normal((T, d)).astype(np.float32)
     w = (0.3 * rng.standard_normal((d, E))).astype(np.float32)
     if name == "decode":
@@ -196,26 +202,92 @@ def test_moe_route_plain_matches_jax_router(name):
     np.testing.assert_allclose(float(r.aux), float(aux), atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ROUTE_CASES)
+# the dispatch's and combine's edges beside the route's cases: deepseek's
+# decode routes, k = 8 (MAX_K), one token, every assignment dropped, an
+# odd d
+GLUE_CASES = ROUTE_CASES + ["deepseek_decode_T2", "deepseek_decode_T8", "k8", "T1",
+                            "all_dropped", "odd_d"]
+
+
+def glue_case(name):
+    """``(x, k, C, E, slot, src, vals)`` of the route of ``route_case(name)``;
+    "all_dropped" sends every assignment to the overflow slot."""
+    x, w, k, C = route_case(name)
+    E = w.shape[1]
+    r = ops.moe_route(torch.from_numpy(x), torch.from_numpy(w), k, C)
+    slot, src = r.slot, r.src
+    if name == "all_dropped":
+        slot, src = torch.full_like(slot, E * C), torch.full_like(src, -1)
+    return x, k, C, E, slot, src, r.vals
+
+
+def jax_dispatch(x, slot, k, E, C):
+    """``repro/models/moe.py:121-125``: the rows scatter-added into zeros."""
+    d = x.shape[1]
+    return jnp.zeros((E * C + 1, d), x.dtype).at[slot].add(
+        jnp.repeat(x, k, axis=0))[: E * C].reshape(E, C, d)
+
+
+@pytest.mark.parametrize("name", GLUE_CASES)
 def test_moe_dispatch_and_combine_plain_match_jax(name):
     """The slots' rows against ``xe.at[slot].add`` into zeros (exact), and
     the gated gather against ``moe.py:133-135``."""
-    x, w, k, C = route_case(name)
+    x, k, C, E, slot_t, src, vals = glue_case(name)
     T, d = x.shape
-    E = w.shape[1]
-    r = ops.moe_route(torch.from_numpy(x), torch.from_numpy(w), k, C)
-    slot = jnp.asarray(r.slot.numpy())
-    xe_j = jnp.zeros((E * C + 1, d), jnp.float32).at[slot].add(
-        jnp.repeat(jnp.asarray(x), k, axis=0))[: E * C].reshape(E, C, d)
-    xe = ops.moe_dispatch(torch.from_numpy(x), r.src, E, C)
+    slot = jnp.asarray(slot_t.numpy())
+    xe_j = jax_dispatch(jnp.asarray(x), slot, k, E, C)
+    xe = ops.moe_dispatch(torch.from_numpy(x), src, E, C)
     np.testing.assert_array_equal(xe.numpy(), np.asarray(xe_j))
     ye = np.random.default_rng(3).standard_normal((E, C, d)).astype(np.float32)
     ye_flat = jnp.concatenate([jnp.asarray(ye).reshape(E * C, d),
                                jnp.zeros((1, d), jnp.float32)], axis=0)
     yk = ye_flat[slot].reshape(T, k, d)
-    y_j = jnp.sum(yk * jnp.asarray(r.vals.numpy())[..., None], axis=1)
-    y = ops.moe_combine(torch.from_numpy(ye), r.slot, r.vals)
+    y_j = jnp.sum(yk * jnp.asarray(vals.numpy())[..., None], axis=1)
+    y = ops.moe_combine(torch.from_numpy(ye), slot_t, vals)
     np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=1e-6, rtol=1e-6)
+    if name == "all_dropped":
+        assert not xe.any() and not y.any()
+
+
+@pytest.mark.parametrize("name", GLUE_CASES)
+def test_moe_dispatch_gradient_plain_matches_jax(name):
+    """The dispatch's gradient under autograd (``Dispatch.backward``: the
+    combine with unit gates, each token's slot gradients summed) against
+    JAX's gradient of the scatter-add, on the plain path."""
+    x, k, C, E, slot, src, _ = glue_case(name)
+    g = np.random.default_rng(4).standard_normal((E, C, x.shape[1])).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    xe = ops.moe_dispatch(xt, src, E, C, slot=slot)
+    (dx,) = torch.autograd.grad(xe, xt, torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda v: jax_dispatch(v, jnp.asarray(slot.numpy()), k, E, C),
+                     jnp.asarray(x))
+    (dx_j,) = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_j), atol=1e-6, rtol=1e-6)
+    assert not any(ops.launch_counts().values())
+
+
+def test_kernels_in_place_tells_the_combine_from_its_backward():
+    """The serve and decode profiles read the port's kernels from one table
+    of device function names; ``moe_combine_kernel`` must not also count
+    ``moe_combine_bwd_kernel``'s launches."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch.serve import DEVICE_FUNCTIONS, kernels_in_place
+
+    def event(key, count, us):
+        return SimpleNamespace(device_type=SimpleNamespace(name="CUDA"), key=key,
+                               count=count, self_device_time_total=us)
+
+    ka = [event("void (anonymous namespace)::moe_combine_kernel<true, 8, 1>(...)", 4, 8.0),
+          event("void (anonymous namespace)::moe_combine_bwd_kernel<true>(...)", 2, 30.0),
+          event("void (anonymous namespace)::moe_dispatch_kernel<true>(...)", 4, 6.0),
+          event("aten::mm", 9, 100.0)]
+    own = kernels_in_place(ka, steps=2)
+    assert own == {"moe_combine": {"launches_per_step": 2.0, "us_per_launch": 2.0},
+                   "moe_combine_bwd": {"launches_per_step": 1.0, "us_per_launch": 15.0},
+                   "moe_dispatch": {"launches_per_step": 2.0, "us_per_launch": 1.5}}
+    assert {n for n, _ in DEVICE_FUNCTIONS} <= set(ops.launch_counts()) | {
+        "page_gather+page_scatter"}
 
 
 def test_plain_moe_path_launches_no_kernel():
