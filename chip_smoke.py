@@ -35,8 +35,8 @@ into ``build/``) and runs these phases:
    and ``moe_combine`` equal to their plain versions (``torch.equal``) at
    each case and at edges the routes do not reach (T=1, k=1, k=8, k=12,
    every assignment dropped, d=4094 and inputs 4 bytes off alignment on
-   the element path, ragged token tiles and column chunks, two and four
-   vectors a thread), and the dispatch's backward through ``Dispatch.backward``
+   the element path, ragged token tiles and column chunks, four vectors
+   a thread), and the dispatch's backward through ``Dispatch.backward``
    (unit gates filled just before the combine launches); one
    full-width phi3.5-moe MoE layer on the card
    against the CPU at its decode and prefill shapes, where experts
@@ -207,15 +207,6 @@ spread over one-ulp changes of its weights (``SPREAD_ARCHS``); and a
 config of tinyllama's smoke widths with a shared attention block served
 on both planes, cuda equal to cpu, launches exact.
 
-``--parent-moe CU`` names another ``moe_dispatch.cu`` with the same C
-interface (a parent commit's, e.g. from ``git archive`` into ``build/``):
-its kernels are then built beside this checkout's and timed in turns
-(parent, change, change, parent) wherever ``moe_dispatch`` and
-``moe_combine`` are timed, cold (``[kernels]``, ``[train]``, ``[decode]``
-lines) and in place (phi3.5-moe's serve profile, deepseek's decode
-profile: µs a launch, device busy ms a step).  Launch counts are read
-before any such turn.
-
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the result lines; there is no CPU fallback.
@@ -337,71 +328,6 @@ def time_ms(torch, fn, flush, iters: int = 50, warmup: int = 3) -> float:
         ends[i].record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
-
-
-# ``--parent-moe PATH``: another ``moe_dispatch.cu`` (a parent commit's,
-# with the same C interface) to time in turns with this checkout's
-PARENT_MOE = {"source": None, "lib": None}
-
-
-def parent_moe_lib():
-    """The library built from ``PARENT_MOE["source"]`` with the build's own
-    flags into ``build/``, bound as this checkout's; None without one."""
-    import ctypes
-    import hashlib
-
-    from repro_torch.kernels import build
-    from repro_torch.kernels import moe_dispatch as md
-
-    src = PARENT_MOE["source"]
-    if src is None or PARENT_MOE["lib"] is not None:
-        return PARENT_MOE["lib"]
-    src = Path(src).resolve()
-    h = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
-        h.update(header.read_bytes())
-    out = build.BUILD_DIR / f"parent_moe_dispatch-{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            fail(f"nvcc failed on the parent's {src}:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    lib.tpp_error_string.argtypes = [ctypes.c_int]
-    lib.tpp_error_string.restype = ctypes.c_char_p
-    md._bind(lib)
-    PARENT_MOE["lib"] = lib
-    return lib
-
-
-@contextlib.contextmanager
-def moe_library(lib):
-    """The MoE wrappers launch from ``lib`` inside the block (the C
-    interface is the same, so are the wrappers and their counts)."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels import moe_dispatch as md
-
-    own = build.library("moe_dispatch", md._bind)
-    build._libs["moe_dispatch"] = lib
-    try:
-        yield
-    finally:
-        build._libs["moe_dispatch"] = own
-
-
-def moe_turns(measure):
-    """``measure()`` with the parent's MoE kernels and this checkout's in
-    turns (parent, change, change, parent) → ``{"parent": [..],
-    "change": [..]}``, or None without ``--parent-moe``."""
-    lib = parent_moe_lib()
-    if lib is None:
-        return None
-    out = {"parent": [], "change": []}
-    for who in ("parent", "change", "change", "parent"):
-        with moe_library(lib) if who == "parent" else contextlib.nullcontext():
-            out[who].append(measure())
-    return out
 
 
 def bound(nbytes: float, flops: float, dtype: str = "float32"):
@@ -1156,46 +1082,19 @@ def glue_times(torch, gen, flush, x, w, k, C):
     c_bytes = 4 * (kept * dd + 2 * T * k + T * dd)
     db_ms, db_by = bound(d_bytes, 0.0)
     cb_ms, cb_by = bound(c_bytes, 2.0 * T * k * dd)
-
-    def dispatch():
-        return md.moe_dispatch(x, src, Ek, C)
-
-    def combine():
-        return md.moe_combine(ye, slot, vals)
-
     return {
         "moe_dispatch": dict(
-            kernel_ms=time_ms(torch, dispatch, flush),
+            kernel_ms=time_ms(torch, lambda: md.moe_dispatch(x, src, Ek, C), flush),
             plain_ms=time_ms(torch, lambda: md.moe_dispatch_plain(x, src, Ek, C), flush),
             replaced_lines_ms=time_ms(torch, dispatch_lines, flush),
-            library_ms=None, bound_ms=db_ms, bound_by=db_by, bound_bytes=d_bytes,
-            parent_turns_ms=moe_turns(lambda: time_ms(torch, dispatch, flush))),
+            library_ms=None, bound_ms=db_ms, bound_by=db_by, bound_bytes=d_bytes),
         "moe_combine": dict(
-            kernel_ms=time_ms(torch, combine, flush),
+            kernel_ms=time_ms(torch, lambda: md.moe_combine(ye, slot, vals), flush),
             plain_ms=time_ms(torch, lambda: md.moe_combine_plain(ye, slot, vals), flush),
             replaced_lines_ms=time_ms(torch, combine_lines, flush),
             library_ms=None, bound_ms=cb_ms, bound_by=cb_by, bound_bytes=c_bytes,
-            bound_flops=2.0 * T * k * dd,
-            parent_turns_ms=moe_turns(lambda: time_ms(torch, combine, flush))),
+            bound_flops=2.0 * T * k * dd),
     }
-
-
-def moe_in_place(prof):
-    """The MoE dispatch's and combine's µs a launch in place, and the
-    device busy and wall ms a step, from a decode profile."""
-    own = prof["port_kernels_in_place"]
-    return {"moe_dispatch_us": own.get("moe_dispatch", {}).get("us_per_launch"),
-            "moe_combine_us": own.get("moe_combine", {}).get("us_per_launch"),
-            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
-            "wall_ms_per_step": prof["wall_ms_per_step"]}
-
-
-def log_turns(tag, turns, what="cold L2 ms"):
-    """One line of the parent's and this checkout's MoE kernel times in
-    turns, when ``--parent-moe`` gave a parent."""
-    if PARENT_MOE["source"] is not None:
-        log(f"[{tag}] moe_dispatch/moe_combine parent vs change, {what} in turns "
-            f"(parent, change, change, parent) {json.dumps(turns)}")
 
 
 def glue_edge_cases(torch, gen):
@@ -1220,8 +1119,7 @@ def glue_edge_cases(torch, gen):
             "x and ye at a 4-byte offset (element path)": (8, 4096, 16, 2, 1),
             "T=37 d=40 (ragged token tiles and column chunks)": (37, 40, 8, 2, 10),
             "T=300 d=4100 (ragged column chunks)": (300, 4100, 16, 2, 40),
-            "T=600 d=4100 k=2 (four vectors a thread, ragged)": (600, 4100, 16, 2, 80),
-            "T=600 d=4100 k=4 (two vectors a thread, ragged)": (600, 4100, 16, 4, 160)}.items():
+            "T=600 d=4100 k=2 (four vectors a thread, ragged)": (600, 4100, 16, 2, 80)}.items():
         # any k: torch.topk of the softmax in place of router_topk (k <= 8)
         r = rt.route_logits_plain(torch.randn((T, E), generator=gen, device="cuda"), k, C,
                                   topk=lambda lg, kk: (lg.softmax(-1),
@@ -1318,8 +1216,6 @@ def check_moe_route(torch, gen, cfg, flush, fails):
     route_t["decode"]["warm_l2_ms"] = time_ms(
         torch, lambda: rt.moe_route(x, w, k, C), torch.ones(1, device="cuda"))
     glue_t = {key: glue_times(torch, gen, flush, *by[n]) for key, n in timed_cases.items()}
-    log_turns("kernels", {key: {kname: t["parent_turns_ms"] for kname, t in g.items()}
-                          for key, g in glue_t.items()})
     edges = check_moe_glue_edges(torch, gen, fails)
     one = torch.zeros(1, device="cuda")
     floor_ms = time_ms(torch, lambda: one.fill_(1.0), flush)  # this timing's floor
@@ -1534,13 +1430,6 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
 
 # --------------------------------------------------------------------- #
 def main() -> None:
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent-moe", metavar="CU",
-                    help="another moe_dispatch.cu (a parent commit's) whose kernels are "
-                         "timed in turns with this checkout's, cold and in place")
-    PARENT_MOE["source"] = ap.parse_args().parent_moe
     # cuBLAS is deterministic with this workspace (read when cuBLAS starts);
     # the [train] phase's relaunch is held to its first run bit for bit
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1812,11 +1701,6 @@ def serve_phase(torch, name, cfg, ecfg):
     prof = profile_decode(res["engine"], cfg.vocab, requests, prompt_len, 8,
                           str(ROOT / "build" / "profile" / name))
     log(f"[serve] {name} profile {json.dumps(prof)}")
-    if moe:
-        turns = moe_turns(lambda: moe_in_place(profile_decode(
-            res["engine"], cfg.vocab, requests, prompt_len, 8,
-            str(ROOT / "build" / "profile" / f"{name}_turns"))))
-        log_turns("serve", {name: turns}, "in place")
     del res, params, kv
     gc.collect()
     torch.cuda.empty_cache()
@@ -2840,9 +2724,7 @@ def check_moe_combine_bwd(torch, gen, flush, fails):
             dispatch_backward=dict(
                 kernel_ms=time_ms(torch, lambda: md.moe_combine(ye, r.slot, ones), flush),
                 plain_ms=time_ms(torch, lambda: md.moe_combine_plain(ye, r.slot, ones), flush),
-                bound_ms=db_ms, bound_by=db_by,
-                parent_turns_ms=moe_turns(lambda: time_ms(
-                    torch, lambda: md.moe_combine(ye, r.slot, ones), flush))))
+                bound_ms=db_ms, bound_by=db_by))
         if x is not None:  # the route's backward: torch ops and two products
             probs = torch.softmax(x @ w, dim=-1)
             res["route_backward_ms"] = time_ms(torch, lambda: rt.route_backward(
@@ -2851,9 +2733,6 @@ def check_moe_combine_bwd(torch, gen, flush, fails):
         return res
 
     timed = {name: times(*cases[name]) for name in list(cases)[:3]}
-    log_turns("train", {name: {"moe_combine (the dispatch's backward, unit gates)":
-                               t["dispatch_backward"]["parent_turns_ms"]}
-                        for name, t in timed.items()})
     main_t = timed["phi3.5-moe train T=2048"]
     row = {"name": "moe_combine_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
@@ -3374,10 +3253,8 @@ def decode_kernels(torch, cfg, flush, fails, rows):
             fails.append(f"moe kernels {name}: {res}")
         key = f"deepseek_v2_lite_decode_T{T}"
         by_name["moe_route"][key] = dict(route_times(torch, flush, x, w, K, C), checks=res)
-        glue = glue_times(torch, gen, flush, x, w, K, C)
-        for kname, t in glue.items():
+        for kname, t in glue_times(torch, gen, flush, x, w, K, C).items():
             by_name[kname][key] = t
-        log_turns("decode", {key: {kname: t["parent_turns_ms"] for kname, t in glue.items()}})
         by_name["moe_route"]["max_abs_err"] = max(by_name["moe_route"]["max_abs_err"],
                                                   res["max_abs_err"])
         log(f"[decode] moe kernels at {name}: {json.dumps(res)}")
@@ -3413,11 +3290,6 @@ def greedy_decode_run(torch, cfg, params, smi, fails, tag="decode"):
                                DECODE["prompt_len"] + DECODE["max_new"], device="cuda")
     prof = profile_decode_steps(cfg, params, states, prompts[:, :1], 0, DECODE_PROFILE_STEPS,
                                 str(ROOT / "build" / "profile" / f"decode_{cfg.name}"))
-    if L:
-        turns = moe_turns(lambda: moe_in_place(profile_decode_steps(
-            cfg, params, states, prompts[:, :1], 0, DECODE_PROFILE_STEPS,
-            str(ROOT / "build" / "profile" / f"decode_{cfg.name}_turns"))))
-        log_turns(tag, {cfg.name: turns}, "in place")
     secs = res["step_seconds"]
     summary = {
         "arch": cfg.name, "layers": cfg.n_layers, **DECODE, "decode_steps": res["steps"],

@@ -42,14 +42,15 @@
 //    thread issues the loads of 8 row vectors at once (32 registers)
 //    before any arithmetic, then rounds in ascending j, so it waits on
 //    two round trips (indices, then rows) instead of one per gate and
-//    vector: the rows of 8 gates for one vector, or, past two waves of
-//    the card's resident threads (2048 an SM) where k <= 4, of 4 gates
-//    for 2 vectors or 2 gates for 4 (measured on the H100: 8 gates × 1
-//    vector is the faster at decode, 2 × 4 at phi3.5's T = 2048).  k > 8
-//    runs in groups of 8 in ascending order.  A dispatch thread moves
-//    one vector (two were slower at T = 2048 and 4096).  A block takes
-//    the power of two of threads (32-256) nearest below two blocks an
-//    SM, so a decode call spreads over tens to hundreds of SMs.
+//    vector: the rows of 8 gates for one vector, or, where k <= 2 and the
+//    work passes two waves of the card's resident threads (2048 an SM),
+//    of 2 gates for 4 vectors (on the H100 the faster of the two at
+//    phi3.5-moe's T = 2048: tools/moe_turns.py times both).  k > 8 runs
+//    in groups of 8 in ascending order.  A dispatch thread moves one
+//    vector.  The wrappers plan the grid from the card's SM count
+//    (glue_plan in moe_dispatch.py): a block takes the power of two of
+//    threads (32-256) nearest below two blocks an SM, so a decode call
+//    spreads over tens to hundreds of SMs.
 //    d % 4 != 0 or a pointer off 16 bytes takes the element path with
 //    the same staging and plan.
 // 3. Programmatic dependent launch.  Both launch through
@@ -59,8 +60,13 @@
 //    that kernel has finished and its writes are visible, and only then
 //    reads any input: the dispatch's src is written by moe_route just
 //    before it, and the dispatch's backward fills its unit gates with
-//    torch.ones just before the combine.  Loads bypass L1 (ld.global.cg):
-//    no row is read twice by one SM.
+//    torch.ones just before the combine.  On the H100 this saves about
+//    1.3 us an edge when the launches are queued back to back, as a CUDA
+//    graph runs them, and next to nothing in a host-bound step, whose
+//    launches arrive with gaps; staging the combine's indices before the
+//    wait saved at most 0.14 us more, so no input is read before it
+//    (tools/moe_turns.py times both).  Loads bypass L1 (ld.global.cg): no
+//    row is read twice by one SM.
 //
 // moe_combine_bwd is bound by bytes too: at phi3.5-moe's training shape
 // (T = 2048, E * C = 5120 slots, d = 4096) it reads dy and the kept rows
@@ -274,47 +280,24 @@ __global__ void __launch_bounds__(kThreads)
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// Streaming multiprocessors of the current device, read once per device.
-int sm_count() {
-  static int counts[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0) {
-    int c = 0;
-    cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev);
-    counts[dev] = c > 0 ? c : 132;
-  }
-  return counts[dev];
-}
-
-// The launch shape of `rows` rows of n vectors (16-byte or elements): a
-// block of X × Y threads, X a power of two across a row, Y rows; each
-// thread takes vpt vectors: `wide` once the work passes two waves of the
-// card's resident threads (2048 an SM), else 1.  The block takes the
-// power of two of threads, 32 to 256, nearest below two blocks an SM.
+// A launch shape: the wrappers' plan (glue_plan in moe_dispatch.py);
+// each thread of the combine takes vpt vectors.
 struct Plan {
   dim3 grid, block;
   int vpt;
 };
 
-Plan plan(int64_t rows, int n, int max_y, int wide) {
-  const int sms = sm_count();
-  const int64_t total = rows * n;
-  Plan p;
-  p.vpt = total >= 2LL * sms * 2048 ? wide : 1;
-  const int64_t per_block = total / p.vpt / (2LL * sms);
-  int threads = 32;
-  while (threads < kThreads && 2LL * threads <= per_block) threads *= 2;
-  const int64_t cols = (n + p.vpt - 1) / p.vpt;
-  int x = 1;
-  while (x < threads && x < cols) x *= 2;
-  int64_t y = threads / x;
-  if (y > rows) y = rows;
-  if (y > max_y) y = max_y;
-  p.block = dim3(x, static_cast<unsigned>(y));
-  p.grid = dim3(static_cast<unsigned>((rows + y - 1) / y),
-                static_cast<unsigned>((cols + x - 1) / x));
-  return p;
+// The plan of rows × n vectors at a block of bx × by threads, or false
+// if the block or the grid is out of range.
+bool make_plan(int64_t rows, int n, int vpt, int bx, int by, Plan* p) {
+  if (bx < 1 || by < 1 || bx * by > kThreads || vpt < 1) return false;
+  const int64_t cols = (n + vpt - 1) / vpt;
+  const int64_t gx = (rows + by - 1) / by, gy = (cols + bx - 1) / bx;
+  if (gx > 0x7fffffff || gy > 65535) return false;
+  p->grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  p->block = dim3(bx, by);
+  p->vpt = vpt;
+  return true;
 }
 
 // cudaLaunchKernelEx with programmatic stream serialization: the kernel
@@ -339,24 +322,26 @@ cudaError_t launch_pdl(void (*kernel)(Params...), const Plan& p, size_t smem,
 }
 
 // The combine at plan p: each thread holds 8 row vectors at once, the
-// rows of 8 gates (vpt 1), of 4 gates × 2 vectors or of 2 × 4.
+// rows of 8 gates (vpt 1) or of 2 gates × 4 vectors (vpt 4).
 template <bool kVec, typename... Args>
 cudaError_t launch_combine(const Plan& p, size_t smem, cudaStream_t st, Args... args) {
-  switch (p.vpt) {
-    case 4: return launch_pdl(moe_combine_kernel<kVec, 2, 4>, p, smem, st, args...);
-    case 2: return launch_pdl(moe_combine_kernel<kVec, 4, 2>, p, smem, st, args...);
-    default: return launch_pdl(moe_combine_kernel<kVec, kGroup, 1>, p, smem, st, args...);
-  }
+  return p.vpt == 4 ? launch_pdl(moe_combine_kernel<kVec, 2, 4>, p, smem, st, args...)
+                    : launch_pdl(moe_combine_kernel<kVec, kGroup, 1>, p, smem, st, args...);
 }
 
 }  // namespace
 
 // x (T, d) float32 contiguous; src (E * C) int32 in [-1, T); xe (E * C, d).
+// vec: 16-byte vectors (d % 4 == 0, x and xe aligned), else elements; a
+// block of bx × by threads.
 extern "C" int moe_dispatch(const void* x, const void* src, void* xe,
-                            int64_t rows, int d, void* stream) {
-  if (rows < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = d % 4 == 0 && aligned16(x) && aligned16(xe);
-  const Plan p = plan(rows, vec ? d / 4 : d, kThreads, 1);
+                            int64_t rows, int d, int vec, int bx, int by,
+                            void* stream) {
+  Plan p;
+  if (rows < 1 || d < 1 || (vec && (d % 4 != 0 || !aligned16(x) || !aligned16(xe))) ||
+      !make_plan(rows, vec ? d / 4 : d, 1, bx, by, &p)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto st = static_cast<cudaStream_t>(stream);
   auto xp = static_cast<const float*>(x);
   auto sp = static_cast<const int32_t*>(src);
@@ -366,20 +351,21 @@ extern "C" int moe_dispatch(const void* x, const void* src, void* xe,
 }
 
 // ye (drop, d) float32 contiguous, drop = E * C; slot (T * k) int32 in
-// [0, drop]; vals (T, k) float32; y (T, d).  Any k: the tile's indices
-// must fit kStageBytes (k <= 6144).
+// [0, drop]; vals (T, k) float32; y (T, d).  vec as the dispatch's; a
+// block of bx × by threads, vpt (1 or 4) vectors a thread.  Any k: the
+// block's by * k indices must fit kStageBytes.
 extern "C" int moe_combine(const void* ye, const void* slot, const void* vals,
-                           void* y, int T, int d, int k, int drop,
-                           void* stream) {
+                           void* y, int T, int d, int k, int drop, int vec,
+                           int vpt, int bx, int by, void* stream) {
   constexpr int kEntry = sizeof(int32_t) + sizeof(float);
-  if (T < 1 || d < 1 || k < 1 || k > kStageBytes / kEntry) {
+  Plan p;
+  if (T < 1 || d < 1 || k < 1 || (vpt != 1 && vpt != 4) ||
+      (vec && (d % 4 != 0 || !aligned16(ye) || !aligned16(y))) ||
+      static_cast<int64_t>(by) * k * kEntry > kStageBytes ||
+      !make_plan(T, vec ? d / 4 : d, vpt, bx, by, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = d % 4 == 0 && aligned16(ye) && aligned16(y);
-  // at large shapes a thread takes more vectors where k leaves registers free
-  const int wide = k <= 2 ? 4 : k <= 4 ? 2 : 1;
-  const Plan p = plan(T, vec ? d / 4 : d, kStageBytes / (kEntry * k), wide);
-  const size_t smem = static_cast<size_t>(p.block.y) * k * kEntry;
+  const size_t smem = static_cast<size_t>(by) * k * kEntry;
   auto st = static_cast<cudaStream_t>(stream);
   auto yp = static_cast<const float*>(ye);
   auto sp = static_cast<const int32_t*>(slot);

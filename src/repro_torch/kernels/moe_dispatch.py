@@ -23,7 +23,8 @@ count their launches; the ``*_plain`` versions are what ``kernels.ops``
 runs for a CPU tensor.  Float32 only.  The dispatch and the combine
 launch with programmatic dependent launch: their blocks may be scheduled
 while the previous kernel in the stream drains, and wait for it to
-finish before they read any input.
+finish before they read any input.  Their grids are planned here
+(:func:`glue_plan`) from the card's SM count.
 
 :class:`Dispatch` and :class:`Combine` are their ``torch.autograd``
 Functions, over the kernels or over the plain versions.  The combine's
@@ -36,6 +37,8 @@ gates, so the dispatch needs ``slot`` beside ``src``.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Dict
 
 import torch
 
@@ -44,12 +47,55 @@ from repro_torch.kernels import build
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.moe_dispatch.argtypes = [P, P, P, ctypes.c_int64, I, P]
+    lib.moe_dispatch.argtypes = [P, P, P, ctypes.c_int64] + [I] * 4 + [P]
     lib.moe_dispatch.restype = I
-    lib.moe_combine.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.moe_combine.argtypes = [P] * 4 + [I] * 8 + [P]
     lib.moe_combine.restype = I
     lib.moe_combine_bwd.argtypes = [P] * 6 + [I] * 4 + [P]
     lib.moe_combine_bwd.restype = I
+
+
+THREADS = 256  # the most threads a block (kThreads in the source)
+STAGE_BYTES = 48 * 1024  # the combine's staged slots and gates a block, at most
+RESIDENT = 2048  # resident threads an SM
+
+
+def glue_plan(rows: int, n: int, sms: int, wide: int = 1, max_y: int = THREADS
+              ) -> Dict[str, int]:
+    """The launch shape of ``rows`` rows (the dispatch's slots, the
+    combine's tokens) of ``n`` vectors each on a card of ``sms`` SMs.
+
+    A block of ``bx × by`` threads covers ``by`` rows and ``bx`` (a power
+    of two) columns; each thread takes ``vpt`` vectors, ``wide`` once the
+    work passes two waves of the card's resident threads, else 1.  The
+    block takes the power of two of threads, 32 to 256, nearest below two
+    blocks an SM, and at most ``max_y`` rows.
+    """
+    total = rows * n
+    vpt = wide if total >= 2 * sms * RESIDENT else 1
+    per_block = total // vpt // (2 * sms)
+    threads = 32
+    while threads < THREADS and 2 * threads <= per_block:
+        threads *= 2
+    cols = math.ceil(n / vpt)
+    bx = 1
+    while bx < threads and bx < cols:
+        bx *= 2
+    by = min(threads // bx, rows, max_y)
+    return dict(vpt=vpt, bx=bx, by=by, grid=(math.ceil(rows / by), math.ceil(cols / bx)))
+
+
+def combine_plan(T: int, n: int, k: int, sms: int) -> Dict[str, int]:
+    """:func:`glue_plan` of the combine: 4 vectors a thread at large
+    shapes where k <= 2 (a thread then holds the rows of 2 gates × 4
+    vectors), and no more tokens a block than ``STAGE_BYTES`` of staged
+    slots and gates hold."""
+    return glue_plan(T, n, sms, wide=4 if k <= 2 else 1, max_y=STAGE_BYTES // (8 * k))
+
+
+def _vec(d: int, *tensors: torch.Tensor) -> bool:
+    """16-byte vectors: d a multiple of 4 and every pointer aligned."""
+    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_dispatch(x: torch.Tensor, src: torch.Tensor, E: int, C: int) -> None:
@@ -84,11 +130,13 @@ def moe_dispatch(x: torch.Tensor, src: torch.Tensor, E: int, C: int) -> torch.Te
     xe = torch.empty((E, C, d), dtype=x.dtype, device=x.device)
     if xe.numel() == 0:  # nothing to launch, so nothing to count
         return xe
+    vec = _vec(d, x, xe)
+    plan = glue_plan(E * C, d // 4 if vec else d, build.sm_count(x.device))
     lib = build.library("moe_dispatch", _bind)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.moe_dispatch(x.data_ptr(), src.data_ptr(), xe.data_ptr(), E * C, d,
-                                stream)
+                                vec, plan["bx"], plan["by"], stream)
     build.check(lib, code, "moe_dispatch")
     moe_dispatch.launches += 1
     return xe
@@ -116,14 +164,20 @@ def moe_combine(ye: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor
         raise ValueError("moe_combine: ye and vals must be float32 and slot int32")
     E, C, d = ye.shape
     T, k = vals.shape
+    if k > STAGE_BYTES // 8:
+        raise ValueError(f"moe_combine: the kernel stages at most {STAGE_BYTES // 8} "
+                         f"gates a token, got {k}")
     y = torch.empty((T, d), dtype=ye.dtype, device=ye.device)
     if y.numel() == 0:  # nothing to launch, so nothing to count
         return y
+    vec = _vec(d, ye, y)
+    plan = combine_plan(T, d // 4 if vec else d, k, build.sm_count(ye.device))
     lib = build.library("moe_dispatch", _bind)
     with torch.cuda.device(ye.device):
         stream = torch.cuda.current_stream(ye.device).cuda_stream
         code = lib.moe_combine(ye.data_ptr(), slot.data_ptr(), vals.data_ptr(),
-                               y.data_ptr(), T, d, k, E * C, stream)
+                               y.data_ptr(), T, d, k, E * C, vec, plan["vpt"], plan["bx"],
+                               plan["by"], stream)
     build.check(lib, code, "moe_combine")
     moe_combine.launches += 1
     return y

@@ -41,6 +41,31 @@ KERNELS = {
 }
 
 
+#: the kernels by the names of their device functions in a profile
+DEVICE_FUNCTIONS = (("paged_attention", "paged_attention_kernel"),
+                    ("router_topk", "router_topk_kernel"),
+                    ("moe_route", "moe_route_kernel"),
+                    ("moe_dispatch", "moe_dispatch_kernel"),
+                    ("moe_combine", "moe_combine_kernel"),
+                    ("moe_combine_bwd", "moe_combine_bwd_kernel"),
+                    ("flash_attention", "flash_attention_kernel"),
+                    ("page_gather+page_scatter", "page_copy_kernel"))
+
+
+def kernels_in_place(key_averages, steps: int) -> Dict[str, Dict[str, float]]:
+    """The port's own kernels in a profile of ``steps`` steps, from
+    ``prof.key_averages()``: launches a step and device µs a launch, by
+    kernel, for each that ran."""
+    own = {}
+    for name, fn in DEVICE_FUNCTIONS:
+        # "moe_combine_kernel" is no substring of "moe_combine_bwd_kernel"
+        evs = [e for e in key_averages if e.device_type.name == "CUDA" and fn in e.key]
+        n = sum(e.count for e in evs)
+        if n:
+            us = sum(e.self_device_time_total for e in evs)
+            own[name] = {"launches_per_step": n / steps, "us_per_launch": us / n}
+    return own
+
 def _pick(impl: str, x: torch.Tensor) -> str:
     if impl == "auto":
         return "kernel" if x.is_cuda else "ref"

@@ -26,6 +26,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.model import (
     ModelConfig,
     decode_step,
@@ -95,8 +96,6 @@ def profile_decode_steps(cfg: ModelConfig, params: Any, states: Any, tokens: tor
     Tracing slows the host; take step times from an untraced run."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.serve import kernels_in_place
-
     device = tokens.device
     B = tokens.shape[0]
     acts = [ProfilerActivity.CPU]
@@ -132,7 +131,7 @@ def profile_decode_steps(cfg: ModelConfig, params: Any, states: Any, tokens: tor
                 sum(1 for e in events if e.get("cat") == "kernel") / steps,
             "top_device_ops_ms_per_step": {
                 e.key: e.self_device_time_total / 1e3 / steps for e in top},
-            "port_kernels_in_place": kernels_in_place(ka, steps)}
+            "port_kernels_in_place": kernel_ops.kernels_in_place(ka, steps)}
 
 
 def main() -> None:

@@ -243,32 +243,6 @@ def trace_kernel_launches(path) -> int:
     return sum(1 for e in events if e.get("cat") == "kernel")
 
 
-# the port's kernels by the names of their device functions in a trace
-DEVICE_FUNCTIONS = (("paged_attention", "paged_attention_kernel"),
-                    ("router_topk", "router_topk_kernel"),
-                    ("moe_route", "moe_route_kernel"),
-                    ("moe_dispatch", "moe_dispatch_kernel"),
-                    ("moe_combine", "moe_combine_kernel"),
-                    ("moe_combine_bwd", "moe_combine_bwd_kernel"),
-                    ("flash_attention", "flash_attention_kernel"),
-                    ("page_gather+page_scatter", "page_copy_kernel"))
-
-
-def kernels_in_place(key_averages, steps: int) -> Dict[str, Dict[str, float]]:
-    """The port's own kernels in a profile of ``steps`` steps, from
-    ``prof.key_averages()``: launches a step and device µs a launch, by
-    kernel, for each that ran."""
-    own = {}
-    for name, fn in DEVICE_FUNCTIONS:
-        # "moe_combine_kernel" is no substring of "moe_combine_bwd_kernel"
-        evs = [e for e in key_averages if e.device_type.name == "CUDA" and fn in e.key]
-        n = sum(e.count for e in evs)
-        if n:
-            us = sum(e.self_device_time_total for e in evs)
-            own[name] = {"launches_per_step": n / steps, "us_per_launch": us / n}
-    return own
-
-
 def profile_decode(eng: ServingEngine, vocab: int, requests: int,
                    prompt_len: int, steps: int, out_dir: str,
                    seed: int = 1) -> Dict[str, Any]:
@@ -315,7 +289,7 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
     prof.export_chrome_trace(str(out / "trace.json"))
     top = sorted((e for e in ka if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:12]
-    own = kernels_in_place(ka, steps)
+    own = kernel_ops.kernels_in_place(ka, steps)
     if "page_gather+page_scatter" in own and flushes:
         # by the wrappers' count: the trace can miss a launch
         c = own["page_gather+page_scatter"]

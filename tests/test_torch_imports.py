@@ -1,7 +1,7 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
-An AST scan of every file under ``src/repro_torch/`` and of
-``chip_smoke.py`` finds no ``jax`` import and no ``repro``/``repro.*``
+An AST scan of every file under ``src/repro_torch/``, of
+``chip_smoke.py`` and of ``tools/moe_turns.py`` finds no ``jax`` import and no ``repro``/``repro.*``
 import, and a fresh interpreter that imports the serving engine ends
 with no ``jax`` module loaded.
 """
@@ -17,7 +17,8 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
-FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PACKAGE = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+FILES = PACKAGE + [REPO / "chip_smoke.py", REPO / "tools" / "moe_turns.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -46,7 +47,7 @@ def test_no_jax_or_repro_import(path):
 
 
 def test_port_covers_its_layout():
-    names = {p.relative_to(REPO / "src" / "repro_torch").parts[0] for p in FILES[:-1]}
+    names = {p.relative_to(REPO / "src" / "repro_torch").parts[0] for p in PACKAGE}
     assert {"core", "kernels", "models", "serving", "configs", "launch", "analysis",
             "qos", "traffic", "benchmarks", "fleet", "optim", "data", "checkpoint"} <= names
 

@@ -24,6 +24,7 @@ from repro.kernels.page_migrate import page_scatter as jax_scatter  # noqa: E402
 from repro.kernels.paged_attention import paged_attention as jax_paged  # noqa: E402
 from repro.kernels.ref import paged_attention_ref  # noqa: E402
 from repro.kernels.router_topk import router_topk as jax_router  # noqa: E402
+from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import ops, page_migrate  # noqa: E402
 from repro_torch.kernels import router_topk as rt  # noqa: E402
 from repro_torch.models.attention import reference_attention  # noqa: E402
@@ -474,6 +475,37 @@ def test_route_plan_covers_tokens_and_width(T, d, E, k):
     assert DC % BK == 0 and (NC - 1) * DC < d <= NC * DC  # no empty chunk
     assert NC <= rt.MAX_CHUNKS and (NT * NC <= 132 or NC == 1)
 
+
+
+# The MoE dispatch's and combine's grids (glue_plan): (rows, vectors a
+# row, k), k None for the dispatch.  phi3.5-moe's and deepseek-v2-lite's
+# decode, deepseek's T=4096, the dispatch's backward at phi3.5's T=2048,
+# the element path (d=4094), ragged tiles and the combine's largest k.
+GLUE_SHAPES = [(16, 1024, None), (8, 1024, 2), (64, 512, None), (2, 512, 6), (8, 512, 6),
+               (30720, 512, None), (4096, 512, 6), (2048, 1024, 2), (3, 4094, 8),
+               (37, 10, 2), (600, 1025, 2), (5, 64, 12), (1, 1, 1), (1, 10, 6144)]
+
+
+@pytest.mark.parametrize("rows,n,k", GLUE_SHAPES)
+def test_glue_plan_covers_rows_and_vectors(rows, n, k):
+    sms = 132
+    p = (md.glue_plan(rows, n, sms) if k is None else md.combine_plan(rows, n, k, sms))
+    bx, by, vpt, (gx, gy) = p["bx"], p["by"], p["vpt"], p["grid"]
+    assert bx & (bx - 1) == 0 and 1 <= by <= rows and bx * by <= md.THREADS
+    big = rows * n >= 2 * sms * md.RESIDENT  # two waves of resident threads
+    assert vpt == (4 if k is not None and k <= 2 and big else 1)
+    cols = -(-n // vpt)
+    assert (gx - 1) * by < rows <= gx * by  # every row, no empty tile
+    assert (gy - 1) * bx < cols <= gy * bx and gy <= 65535
+    if k is not None:  # the tile's slots and gates fit the staging buffer
+        assert by * k * 8 <= md.STAGE_BYTES
+    # the grid spreads over the card: at least a block an SM, or every
+    # block holds at least 32 threads' work
+    assert gx * gy >= min(sms, -(-rows * cols // 256))
+    if (rows, n, k) == (2, 512, 6):  # deepseek's decode combine: 32 warps
+        assert (bx, by, gx, gy) == (32, 1, 2, 16)
+    if (rows, n, k) == (64, 512, None):  # its dispatch: 512 blocks of 64
+        assert (bx, by, gx, gy) == (64, 1, 64, 8)
 
 def tile_ranked_slots(idx, TM, E, C, warps=8):
     """The kernel's phases 2 and 3 over ``idx (T, k)`` in numpy."""

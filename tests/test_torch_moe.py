@@ -272,8 +272,6 @@ def test_kernels_in_place_tells_the_combine_from_its_backward():
     ``moe_combine_bwd_kernel``'s launches."""
     from types import SimpleNamespace
 
-    from repro_torch.launch.serve import DEVICE_FUNCTIONS, kernels_in_place
-
     def event(key, count, us):
         return SimpleNamespace(device_type=SimpleNamespace(name="CUDA"), key=key,
                                count=count, self_device_time_total=us)
@@ -282,11 +280,11 @@ def test_kernels_in_place_tells_the_combine_from_its_backward():
           event("void (anonymous namespace)::moe_combine_bwd_kernel<true>(...)", 2, 30.0),
           event("void (anonymous namespace)::moe_dispatch_kernel<true>(...)", 4, 6.0),
           event("aten::mm", 9, 100.0)]
-    own = kernels_in_place(ka, steps=2)
+    own = ops.kernels_in_place(ka, steps=2)
     assert own == {"moe_combine": {"launches_per_step": 2.0, "us_per_launch": 2.0},
                    "moe_combine_bwd": {"launches_per_step": 1.0, "us_per_launch": 15.0},
                    "moe_dispatch": {"launches_per_step": 2.0, "us_per_launch": 1.5}}
-    assert {n for n, _ in DEVICE_FUNCTIONS} <= set(ops.launch_counts()) | {
+    assert {n for n, _ in ops.DEVICE_FUNCTIONS} <= set(ops.launch_counts()) | {
         "page_gather+page_scatter"}
 
 
