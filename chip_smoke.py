@@ -207,6 +207,24 @@ spread over one-ulp changes of its weights (``SPREAD_ARCHS``); and a
 config of tinyllama's smoke widths with a shared attention block served
 on both planes, cuda equal to cpu, launches exact.
 
+Then (``[examples]``) the three examples of ``repro_torch.examples``:
+quickstart's text equal to JAX's (``QUICKSTART_OUTPUT``, host only);
+``serve_tiered --short``, the pause/resume and the Poisson traffic
+demos, on the card with exact launch counts and the placement of a CPU
+run of the same demo; ``train_e2e``'s lm-100m at full width through
+``train_loop``, 100 steps with a checkpoint every 50, a relaunch to 150
+that resumes from 100, the loss falling in both.  Then (``[remat]``) the
+host mesh (1 × 1, this card, ``nccl``): full-width tinyllama-1.1b's
+float32 training state built on the card equal, byte for byte, to the
+dry-run's per-device argument bytes and to ``memory_allocated``'s
+growth (512-byte blocks); ``remat_policy="dots"`` equal to
+``remat=True`` bit for bit, loss and every gradient, for tinyllama and
+phi3.5-moe cut to 2 layers (routing launches exact), with ms/step and
+peak GiB of each mode.  ``[dryrun]``'s cells (``DRYRUN_CELLS``: every
+family and kind on both production meshes) run from the start as
+background host processes and must each be ``ok`` with their pinned
+per-device argument bytes.
+
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the result lines; there is no CPU fallback.
@@ -1466,6 +1484,7 @@ def main() -> None:
     for name, text in logs.items():
         for fn, regs, spills in ptxas_usage(text):
             log(f"[build] {name}: {fn}: {regs}; {spills}")
+    dryrun_procs = start_dryrun()  # host only, alongside the card's phases
 
     # the serving configuration of phase 3 (and the kernel shapes it gives)
     cfg = get_config("tinyllama-1.1b")
@@ -1623,6 +1642,13 @@ def main() -> None:
     launches_by_path.update(decode_phase(torch, smi, rows))
     # ---------------- [ssm]: the recurrent mixers, shared blocks ------- #
     launches_by_path.update(ssm_phase(torch, smi))
+    # ---------------- [examples], [remat], then [dryrun]'s cells ------- #
+    fails = []
+    launches_by_path.update(examples_phase(torch, smi, fails))
+    remat_phase(torch, smi, fails)
+    finish_dryrun(dryrun_procs, fails)
+    if fails:
+        fail("; ".join(fails))
 
     for r in rows:
         log(f"[kernels] {r['name']}: max_abs_err {r['max_abs_err']} "
@@ -3758,6 +3784,400 @@ def ssm_phase(torch, smi):
         launches[f"ssm/shared-block lifecycle, {plane}"] = shared_lifecycle(torch, plane)
     log(f"[ssm] phase took {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# --------------------------------------------------------------------- #
+# [dryrun], [examples], [remat]: the dry-run's cells, the three examples,
+# the host mesh and remat_policy="dots"
+# --------------------------------------------------------------------- #
+# the quickstart's text, JAX's to the character (tests/test_torch_examples.py)
+QUICKSTART_OUTPUT = """\
+================================================================
+TPP quickstart: cache1 workload, fast tier = 20% of memory
+================================================================
+
+policy           throughput local traffic migrations
+ideal                 1.000         1.000          0
+linux                 0.723         0.248          0
+numa_balancing        0.723         0.248          0
+autotiering           0.793         0.425       1159
+tpp                   0.865         0.677       4371
+
+TPP vmstat counters (§5.5):
+  pgdemote_anon                509
+  pgdemote_file                1737
+  pgpromote_sampled            4915
+  pgpromote_candidate          2125
+  pgpromote_success_anon       523
+  pgpromote_success_file       1602
+  pgpromote_candidate_demoted  1065
+  pgalloc_fast                 1047
+  pgalloc_slow                 1355
+  pswpout                      0
+
+Chameleon profile of the same workload (sample rate 1/20):
+  idle fraction (2-interval window): 72.1%
+  anon hot: 0.9%   file hot: 0.9%
+  re-access CDF @4 intervals: 79.1%
+
+Slowdown controller (web+cache1+data_warehouse, 160 steps):
+  tenant 0 (web            ) slowdown x1.53  → SLO target x1.20
+  tenant 1 (cache1         ) slowdown x2.19  → SLO target x1.80
+  tenant 2 (data_warehouse ) slowdown x2.58  → SLO target x2.60
+  steered allocations: 3744   shares: [0.8089, 0.1415, 0.0497]
+"""
+# lm-100m through train_loop: 100 steps, a checkpoint every 50, a relaunch to
+# 150; at the example's batch of 8 the relaunch's 50 steps sit on the loss's
+# plateau and its own check (last loss below first) falls to batch noise
+# (5.032 -> 5.063 on the card), so the smoke takes batches of 32
+E2E = {"steps": 100, "relaunch_to": 150, "ckpt_every": 50, "batch": 32}
+# every family and kind of the dry-run on both production meshes, each
+# with its per-device argument bytes on (16x16, 2x16x16), bfloat16;
+# tests/test_torch_launch.py holds them to the sums of JAX's shard shapes
+DRYRUN_CELLS = {
+    ("tinyllama-1.1b", "train_4k"): (250343428, 250081284),
+    ("phi3.5-moe-42b-a6.6b", "prefill_32k"): (5746270208, 5746139136),
+    ("deepseek-v2-lite-16b", "decode_32k"): (2546080832, 2291276832),
+    ("zamba2-2.7b", "long_500k"): (6647976888, 6647976888),
+    ("xlstm-350m", "decode_32k"): (884292288, 861386080),
+}
+REMAT_MODES = (("none", {"remat": False}), ("full", {"remat": True}),
+               ("dots", {"remat": True, "remat_policy": "dots"}))
+ALLOC_ROUND = 512  # the CUDA caching allocator's block granularity
+
+
+def start_dryrun():
+    """[dryrun], in the background from the start: one process a cell of
+    ``DRYRUN_CELLS``, both meshes, at the lowest CPU priority and with no
+    card visible (the fake mesh needs none).  Stopped at exit whatever
+    happens."""
+    import atexit
+
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        stem = out / f"{arch}_{shape}"
+        logf = open(f"{stem}.log", "w")
+        procs.append(((arch, shape), stem, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--both-meshes", "--out", f"{stem}.json"],
+            cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(19))))
+        logf.close()
+
+    def stop():
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)
+    return procs
+
+
+def finish_dryrun(procs, fails):
+    """Wait for the [dryrun] cells: each must be ``ok`` on both meshes
+    with its pinned per-device argument bytes."""
+    t0 = time.perf_counter()
+    for (arch, shape), stem, p in procs:
+        rc = p.wait()
+        if rc != 0:
+            tail = Path(f"{stem}.log").read_text()[-2000:]
+            fails.append(f"[dryrun] {arch} {shape} exited {rc}: {tail}")
+            continue
+        rows = json.loads(Path(f"{stem}.json").read_text())
+        for row, want in zip(rows, DRYRUN_CELLS[(arch, shape)]):
+            log(f"[dryrun] {json.dumps(row)}")
+            if row["status"] != "ok":
+                fails.append(f"[dryrun] {arch} {shape} {row['mesh']}: {row}")
+            elif row["argument_size_in_bytes"] != want:
+                fails.append(f"[dryrun] {arch} {shape} {row['mesh']}: argument bytes "
+                             f"{row['argument_size_in_bytes']}, pinned {want}")
+    log(f"[dryrun] {len(procs)} cells × 2 meshes on the host, waited "
+        f"{time.perf_counter() - t0:.1f} s at the end")
+
+
+def quiet(fn, *args, **kwargs):
+    """``fn``'s result and what it printed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def serve_demo(torch, traffic, device):
+    """``serve_tiered --short`` (pause/resume, or ``traffic`` arrivals) on
+    ``device``, launch counts set to 0 just before and read just after →
+    (report, launches, counted decodes and prefills, seconds)."""
+    from repro_torch.examples import serve_tiered
+    from repro_torch.kernels import ops
+
+    argv = ["--short", "--device", device] + (["--traffic", traffic] if traffic else [])
+    args = serve_tiered.parse_args(argv)
+    counts = {}
+
+    def run(sched):
+        with counted(torch, sched) as c:
+            res = sched.run()
+        counts.update(c)
+        return res
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    if traffic:
+        rep, _ = quiet(serve_tiered.traffic_demo, args, run=run)
+    else:
+        rep, _ = quiet(serve_tiered.pause_resume_demo, args)
+    launches = ops.launch_counts()
+    return rep, launches, counts, time.perf_counter() - t0
+
+
+def examples_phase(torch, smi, fails):
+    """[examples]: the quickstart's text equal to JAX's; ``serve_tiered
+    --short``, both demos, on the card with exact launch counts and the
+    same placement as a CPU run of the same demo; ``train_e2e``'s lm-100m
+    at full width, 100 steps with a checkpoint every 50, a relaunch to 150
+    that resumes from 100, the loss falling in both.  Returns the serve
+    demos' launch counts."""
+    import shutil
+    import statistics
+
+    from repro_torch.examples import quickstart, train_e2e
+
+    t0 = time.perf_counter()
+    _, text = quiet(quickstart.main)
+    if text != QUICKSTART_OUTPUT:
+        fails.append(f"[examples] quickstart printed {text!r}, not JAX's text")
+    log(f"[examples] quickstart: {len(text.splitlines())} lines, JAX's text "
+        f"{'exactly' if text == QUICKSTART_OUTPUT else 'NOT'}, "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+
+    launches = {}
+    for traffic in (None, "poisson"):
+        name = f"examples/serve_tiered --short{' --traffic ' + traffic if traffic else ''}"
+        card, launches[name], counts, secs = serve_demo(torch, traffic, "cuda")
+        host, host_launches, host_counts, host_secs = serve_demo(torch, traffic, "cpu")
+        eng = card["engine"]
+        L = eng.cfg.n_layers
+        if traffic:
+            same = (card["summary"] == host["summary"] and counts == host_counts)
+            decodes, prefills = counts["decodes"], counts["prefills"]
+            shown = card["summary"]
+        else:
+            keys = ("phases", "paused_slow", "migrations")
+            same = all(card[k] == host[k] for k in keys)
+            decodes, prefills = eng.steps, 3
+            if any(eng.requests[r].done for r in eng.requests):
+                fails.append(f"[examples] {name}: a request finished early")
+            shown = {k: card[k] for k in keys}
+            log(f"[examples] {name}: tokens equal to the CPU run's in "
+                f"{sum(card['tokens'][r] == host['tokens'][r] for r in card['tokens'])} "
+                f"of {len(card['tokens'])} requests")
+        if not same:
+            fails.append(f"[examples] {name}: card {shown}, cpu differs")
+        want = expected_launches(eng.kv, L, decodes, prefills)
+        if launches[name] != want:
+            fails.append(f"[examples] {name}: launches {launches[name]}, expected {want}")
+        log(f"[examples] {name}: {json.dumps(shown, default=str)}; equal to the CPU "
+            f"run: {same}; launches {json.dumps(launches[name])}; card {secs:.1f} s, "
+            f"cpu {host_secs:.1f} s")
+
+    ckpt = ROOT / "build" / "e2e_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    common = ["--ckpt-dir", str(ckpt), "--ckpt-every", str(E2E["ckpt_every"]),
+              "--batch", str(E2E["batch"]), "--device", "cuda"]
+    try:
+        for steps, resumed in ((E2E["steps"], None), (E2E["relaunch_to"], E2E["steps"])):
+            t1 = time.perf_counter()
+            try:
+                rep, text = quiet(train_e2e.main, ["--steps", str(steps)] + common)
+            except AssertionError as e:
+                fails.append(f"[examples] train_e2e to {steps}: {e}")
+                continue
+            if rep.resumed_from != resumed or rep.steps_run != steps - (resumed or 0):
+                fails.append(f"[examples] train_e2e to {steps}: resumed_from "
+                             f"{rep.resumed_from}, {rep.steps_run} steps")
+            log(f"[examples] train_e2e lm-100m (10 layers, d=640, vocab 32,000, B="
+                f"{E2E['batch']}, S=256) to step "
+                f"{steps}: {text.strip().splitlines()[-1]}; median "
+                f"{statistics.median(rep.step_seconds) * 1e3:.3f} ms/step, loss "
+                f"{rep.losses[0]:.4f} → {rep.losses[-1]:.4f}, "
+                f"{time.perf_counter() - t1:.1f} s with its checkpoints; {smi}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[examples] phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def grads_of(torch, cfg, params, batch, **kw):
+    """The loss and every gradient leaf of one ``loss_fn`` under ``kw``."""
+    from repro_torch.models import nn
+    from repro_torch.models.model import loss_fn
+
+    req = [x.detach().requires_grad_(True) for x in nn.tree_leaves(params)]
+    loss, _ = loss_fn(nn.tree_unflatten(params, req), cfg, batch, **kw)
+    grads = torch.autograd.grad(loss, req, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(x) if g is None else g
+                           for x, g in zip(req, grads)]
+
+
+def remat_equal(torch, name, cfg, params, batch, fails, moe_layers=0):
+    """One loss and backward under each of ``REMAT_MODES``: ``"dots"``
+    against ``remat=True``, the loss and every gradient leaf bit for bit
+    (deterministic algorithms: the embedding's backward accumulates in no
+    fixed order otherwise), each with its MoE launches exact.  Returns
+    each mode's peak GiB over the loss and backward."""
+    import warnings
+
+    from repro_torch.kernels import ops
+
+    out, peaks = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for mode, kw in REMAT_MODES:
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                grads = grads_of(torch, cfg, params, batch, **kw)
+                torch.cuda.synchronize()
+                peaks[mode] = torch.cuda.max_memory_allocated() / 2**30
+                got = ops.launch_counts()
+                if mode != "none":  # kept on the host, out of the next mode's peak
+                    out[mode] = (grads[0].cpu(), [g.cpu() for g in grads[1]])
+                del grads
+                # remat runs each block's forward again in backward, the routing
+                # kernels with it under either policy (the dispatcher never sees them)
+                want = expected_train_launches(moe_layers, forwards=1 if mode == "none" else 2,
+                                               backwards=1)
+                if got != want:
+                    fails.append(f"[remat] {name} {mode}: launches {got}, expected {want}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message)[:120] for w in caught if "deterministic" in str(w.message)})
+    if nondet:
+        log(f"[remat] {name}: nondeterministic ops {nondet}")
+    (l1, g1), (l2, g2) = out["full"], out["dots"]
+    differ = sum(not torch.equal(a, b) for a, b in zip(g1, g2))
+    if not torch.equal(l1, l2) or differ:
+        fails.append(f"[remat] {name}: dots differs from remat=True (loss {float(l1)} vs "
+                     f"{float(l2)}, {differ} of {len(g1)} gradient leaves)")
+    log(f"[remat] {name}: loss {float(l1)!r}, dots vs remat=True: loss "
+        f"{'equal' if torch.equal(l1, l2) else 'DIFFERS'}, {len(g1) - differ} of "
+        f"{len(g1)} gradient leaves bit for bit; peak GiB of the loss and backward "
+        f"{json.dumps(peaks)}")
+    return peaks
+
+
+def remat_phase(torch, smi, fails):
+    """[remat]: on ``make_host_mesh()`` (1 × 1, this card), full-width
+    tinyllama-1.1b in float32 at B=8, S=256: the dry-run's per-device
+    argument bytes against the storage of the params, AdamW ``m``/``v``/
+    ``master`` and batch built on the card (and the same trees as
+    DTensors on the mesh) and against ``memory_allocated``'s growth
+    (each tensor rounded up to ``ALLOC_ROUND``); ``"dots"`` against
+    ``remat=True`` bit for bit; ms/step and peak GiB of two
+    ``make_train_step`` steps under each of ``REMAT_MODES``.  Then
+    phi3.5-moe cut to ``TRAIN_MOE_LAYERS`` layers: the same equality,
+    routing launches exact."""
+    import statistics
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.launch.dryrun import local_bytes, predicted_argument_bytes, step_inputs
+    from repro_torch.launch.mesh import make_host_mesh, mesh_scope
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import nn
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig
+
+    t0 = time.perf_counter()
+    arch = "tinyllama-1.1b"
+    cfg = get_config(arch)
+    shape = (TRAIN_DATA["seq_len"], TRAIN_DATA["global_batch"], "train")
+
+    def batch_of(c):
+        np_batch = next(make_batches(DataConfig(**TRAIN_DATA), c))
+        return {k: torch.from_numpy(v).to("cuda", torch.int32) for k, v in np_batch.items()}
+
+    with mesh_scope(make_host_mesh()) as mesh:
+        log(f"[remat] host mesh {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} on "
+            f"{mesh.device_type}, backend {torch.distributed.get_backend()}")
+        predicted = predicted_argument_bytes(cfg, arch, shape, mesh, torch.float32)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+        opt = optim.init(params, AdamWConfig())
+        batch = batch_of(cfg)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        trees = (params, opt, batch)
+        leaves = [t for tree in trees for t in nn.tree_leaves(tree)]
+        storage = sum(t.untyped_storage().nbytes() for t in leaves)
+        rounded = sum(-(-t.untyped_storage().nbytes() // ALLOC_ROUND) * ALLOC_ROUND
+                      for t in leaves)
+        _, _, shardings = step_inputs(cfg, arch, "", mesh, torch.float32, shape)
+        placed = tuple(nn.tree_map(lambda x, s: DTensor.from_local(
+            x, mesh, s.placements, run_check=False), tree, sh)
+            for tree, sh in zip(trees, shardings))
+        on_mesh = local_bytes(placed)
+        del placed
+    if not predicted == storage == on_mesh or grown != rounded:
+        fails.append(f"[remat] argument bytes: predicted {predicted}, storage {storage}, "
+                     f"DTensor shards {on_mesh}; allocated {grown}, rounded {rounded}")
+    log(f"[remat] {arch} float32 B={shape[1]} S={shape[0]}: predicted per-device "
+        f"argument bytes {predicted}, storage built on the card {storage}, as DTensors "
+        f"on the host mesh {on_mesh}; memory_allocated grew {grown} = {len(leaves)} "
+        f"tensors rounded to {ALLOC_ROUND} B ({rounded})")
+
+    backward_peaks = remat_equal(torch, arch, cfg, params, batch, fails)
+    timing = {}
+    opt_cfg = AdamWConfig()
+    for mode, kw in REMAT_MODES:
+        step = make_train_step(cfg, opt_cfg, donate=True, **kw)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            float(metrics["loss"])
+            times.append(time.perf_counter() - t1)
+        timing[mode] = {"ms_per_step": statistics.median(times[1:]) * 1e3,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "loss_backward_peak_gib": backward_peaks[mode]}
+    log(f"[remat] {arch} ms/step and peak GiB (two steps after one): "
+        f"{json.dumps(timing)}; {smi}")
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe_full = get_config(MOE_ARCH)
+    moe_cfg = dataclasses.replace(moe_full, stacks=((moe_full.stacks[0][0],
+                                                     TRAIN_MOE_LAYERS),))
+    params = init_params(moe_cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    remat_equal(torch, f"{MOE_ARCH}, {TRAIN_MOE_LAYERS} layers", moe_cfg, params,
+                batch_of(moe_cfg), fails, moe_layers=TRAIN_MOE_LAYERS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[remat] phase took {time.perf_counter() - t0:.1f} s")
+    return timing
 
 
 def meminfo_bytes(key: str) -> int:

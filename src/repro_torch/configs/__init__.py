@@ -30,6 +30,14 @@ ALIASES: Dict[str, str] = {
     "xlstm-350m": "xlstm_350m",
 }
 
+SHAPES = {
+    # name: (seq_len, global_batch, kind)
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
 
 def _module(name: str):
     mod = ALIASES.get(name, name).replace("-", "_").replace(".", "_")

@@ -28,6 +28,7 @@ so that it imports nothing of ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -101,6 +102,33 @@ WORKLOADS: Dict[str, WorkloadSpec] = {
 }
 
 
+def zipf_ranks(rng: np.random.Generator, a: float, n: int) -> np.ndarray:
+    """``n`` Zipf(``a``) draws from ``rng``, by numpy 2.0's rejection
+    method, drawing from ``rng`` exactly as ``rng.zipf(a, size=n)`` does
+    there.  Later numpy releases sample ``zipf`` for ``a`` near 1 by
+    another method (2.3.5 gives other ranks at ``a = 1.2``), which would
+    make a trace, and so every placement outcome, depend on the numpy
+    version; this keeps the traces JAX's reference makes under numpy 2.0.
+    A trial takes two doubles (``U``, ``V``) in order, as numpy's C loop
+    does, and each batch asks only for the draws still missing, so the
+    generator ends where numpy's would."""
+    am1 = a - 1.0
+    inv = -1.0 / am1
+    b = 2.0 ** am1
+    pow_, floor = math.pow, math.floor
+    out: List[int] = []
+    while len(out) < n:
+        draws = rng.random(2 * (n - len(out))).tolist()
+        for u, v in zip(draws[::2], draws[1::2]):
+            x = floor(pow_(1.0 - u, inv))
+            if x > 9223372036854775807 or x < 1.0:
+                continue
+            t = pow_(1.0 + 1.0 / x, am1)
+            if v * x * (t - 1.0) / (b - 1.0) <= t / b:
+                out.append(x)
+    return np.asarray(out, dtype=np.int64)
+
+
 class TraceGenerator:
     """Streams :class:`TraceStep`s for a workload spec."""
 
@@ -159,7 +187,7 @@ class TraceGenerator:
         """Zipf-skewed draw over an ordered pool."""
         if len(pool) == 0 or n == 0:
             return np.empty(0, dtype=np.int64)
-        ranks = self.rng.zipf(self.spec.zipf_a, size=n)
+        ranks = zipf_ranks(self.rng, self.spec.zipf_a, n)
         ranks = np.minimum(ranks, len(pool)) - 1
         pool_arr = np.asarray(pool)
         return pool_arr[ranks]

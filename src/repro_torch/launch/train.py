@@ -31,6 +31,7 @@ from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import optim
 from repro_torch.checkpoint import CheckpointManager
@@ -45,13 +46,18 @@ from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
 # --------------------------------------------------------------------- #
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     schedule: Optional[Callable] = None, accum: int = 1,
-                    remat: bool = False, impl: str = "chunked", donate: bool = False):
+                    remat: bool = False, impl: str = "chunked", donate: bool = False,
+                    remat_policy: Optional[str] = None, ce_chunk: int = 0,
+                    ce_onehot: bool = False):
     """Returns ``train_step(params, opt_state, batch) → (params, opt,
-    metrics)``.  ``batch`` holds tensors on the parameters' device.
+    metrics)``.  ``batch`` holds tensors on the parameters' device;
+    ``remat_policy``, ``ce_chunk`` and ``ce_onehot`` go to ``loss_fn``.
 
     ``donate=True`` updates ``params`` and ``opt_state`` in place and
     returns them (JAX's buffer donation: one copy of the training state
-    on the card); ``False`` leaves them untouched.
+    on the card); ``False`` leaves them untouched.  On DTensors (the
+    dry-run) a microbatch is each device's slice of its own batch shard,
+    and the gradient norm of ``meta`` tensors is taken as finite.
     """
     schedule = schedule or (lambda s: 1.0)
 
@@ -59,24 +65,31 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         leaves = nn.tree_leaves(params)
         req = [x.detach().requires_grad_(True) for x in leaves]  # same storage
         loss, metrics = loss_fn(nn.tree_unflatten(params, req), cfg, mb, impl=impl,
-                                remat=remat)
+                                remat=remat, remat_policy=remat_policy,
+                                ce_chunk=ce_chunk, ce_onehot=ce_onehot)
         grads = torch.autograd.grad(loss, req, allow_unused=True)
         # a leaf the loss never reads (qwen2-vl's patch_proj without
         # patches) has a zero gradient, as in JAX
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(req, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
+    def microbatch(x, i):
+        if isinstance(x, DTensor):
+            local = microbatch(x.to_local(), i)
+            return DTensor.from_local(local, x.device_mesh, x.placements, run_check=False)
+        if x.dim() >= 1 and x.shape[0] % accum == 0:
+            return x.reshape((accum, x.shape[0] // accum) + tuple(x.shape[1:]))[i]
+        return x
+
     def slice_mb(batch, i):
-        return {k: x.reshape((accum, x.shape[0] // accum) + tuple(x.shape[1:]))[i]
-                if x.dim() >= 1 and x.shape[0] % accum == 0 else x
-                for k, x in batch.items()}
+        return {k: microbatch(x, i) for k, x in batch.items()}
 
     def train_step(params, opt_state, batch):
         if accum == 1:
             loss, metrics, grads = grad_fn(params, batch)
         else:
             # microbatch accumulation, in order: peak activations of 1/accum
-            grads = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            grads = [torch.zeros_like(x, dtype=torch.float32)
                      for x in nn.tree_leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
             for i in range(accum):
@@ -89,7 +102,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         lr_scale = schedule(opt_state.step)
         gnorm = optim.global_norm(grads)
         # NaN containment: a non-finite gradient norm keeps the old state
-        ok = bool(torch.isfinite(gnorm))
+        ok = gnorm.device.type == "meta" or bool(torch.isfinite(gnorm))
         if ok:
             params, opt_state, opt_metrics = optim.update(
                 nn.tree_unflatten(params, grads), opt_state, params, opt_cfg, lr_scale,

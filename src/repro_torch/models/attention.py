@@ -26,12 +26,14 @@ its v width (128), so :func:`mla_fwd` stays on the chunked loop, as JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.models import nn
+from repro_torch.models.layout import batch_local, model_rank
 from repro_torch.models.rope import (
     apply_rope,
     apply_rope_partial,
@@ -208,22 +210,43 @@ def chunked_attention(
     return out.reshape(B, S, H, Dv).to(q.dtype)
 
 
-def gqa_fwd(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
-            impl: str = "chunked") -> torch.Tensor:
-    """Full-sequence causal GQA: ``x (B, S, d)``, ``positions (B, S)`` or
-    ``(3, B, S)`` → ``(B, S, d)``."""
-    B, S, _ = x.shape
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = nn.dense(p["wq"], x).reshape(B, S, H, D)
-    k = nn.dense(p["wk"], x).reshape(B, S, Hkv, D)
-    v = nn.dense(p["wv"], x).reshape(B, S, Hkv, D)
-    cos, sin = make_cos_sin(cfg, positions)
+def _gqa_core(cfg: AttnConfig, fn, kv_rank, q, k, v, cos, sin) -> torch.Tensor:
+    """Heads, rope and attention of packed ``q (B, S, H·D)``, ``k``, ``v
+    (B, S, Hkv·D)`` → ``(B, S, H·D)`` (a device's heads, on DTensors).
+    Where this device holds ``H / tp`` query heads and every KV head,
+    ``kv_rank`` (its index along ``model``) picks the KV heads of its
+    query heads."""
+    B, S = q.shape[:2]
+    D = cfg.head_dim
+    q, k, v = (t.reshape(B, S, -1, D) for t in (q, k, v))
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq < cfg.n_heads and hkv == cfg.n_kv_heads:
+        G = cfg.n_heads // cfg.n_kv_heads
+        lo, hi = kv_rank * hq // G, ((kv_rank + 1) * hq - 1) // G + 1
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
     if cos is not None:
         q = _rotate(cfg, q, cos, sin)
         k = _rotate(cfg, k, cos, sin)
+    return fn(q, k, v, causal=True, window=cfg.window).reshape(B, S, -1)
+
+
+def gqa_fwd(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
+            impl: str = "chunked") -> torch.Tensor:
+    """Full-sequence causal GQA: ``x (B, S, d)``, ``positions (B, S)`` or
+    ``(3, B, S)`` → ``(B, S, d)``.  On DTensors the heads, rope and
+    attention run on each device's rows (and heads, when both head counts
+    split over ``model``): ``layout.batch_local``."""
+    D, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q, k, v = (nn.dense(p[w], x) for w in ("wq", "wk", "wv"))
+    cos, sin = make_cos_sin(cfg, positions)
     fn = chunked_attention if impl == "chunked" else reference_attention
-    o = fn(q, k, v, causal=True, window=cfg.window)
-    return nn.dense(p["wo"], o.reshape(B, S, H * D))
+    rank, tp = model_rank(q)
+    kv = (2, D)
+    if H % tp == 0 and Hkv % tp and (H // Hkv) % (H // tp) == 0:
+        kv = None  # query heads split, each device's KV heads picked in the core
+    o = batch_local(functools.partial(_gqa_core, cfg, fn, rank), q, k, v, cos, sin,
+                    heads=((2, D), kv, kv, None, None), out_heads=2)
+    return nn.dense(p["wo"], o)
 
 
 def _cur_lens(cur_len, B: int, device) -> torch.Tensor:
@@ -231,6 +254,12 @@ def _cur_lens(cur_len, B: int, device) -> torch.Tensor:
     ``device``: the tokens each sequence already holds in its cache."""
     cur = torch.as_tensor(cur_len, device=device).to(torch.int64)
     return cur.reshape(-1).expand(B)
+
+
+def write_slot(cache: torch.Tensor, slot: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[b, slot[b]] = new[b]`` for every sequence ``b``, in place."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    cache[bidx, slot] = new.to(cache.dtype)
 
 
 def gqa_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, k_cache: torch.Tensor,
@@ -247,26 +276,34 @@ def gqa_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, k_cache: torch.Tensor,
     slots: ``t <= cur`` (and ``t > cur - window``), or with ``rolling``
     the first ``min(cur + 1, S_cache)`` slots.
     """
-    B = x.shape[0]
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    S_cache = k_cache.shape[1]
-    q = nn.dense(p["wq"], x).reshape(B, 1, H, D)
-    k = nn.dense(p["wk"], x).reshape(B, 1, Hkv, D)
-    v = nn.dense(p["wv"], x).reshape(B, 1, Hkv, D)
+    B, D = x.shape[0], cfg.head_dim
+    q, k, v = (nn.dense(p[w], x) for w in ("wq", "wk", "wv"))
     cos, sin = make_cos_sin(cfg, positions)
+    cur = _cur_lens(cur_len, B, x.device)
+    o = batch_local(functools.partial(_gqa_decode_core, cfg, rolling), q, k, v, cos, sin,
+                    k_cache, v_cache, cur,
+                    heads=((2, D), (2, D), (2, D), None, None, 2, 2, None), out_heads=2,
+                    writeback=(5, 6))
+    return nn.dense(p["wo"], o.to(x.dtype)), k_cache, v_cache
+
+
+def _gqa_decode_core(cfg: AttnConfig, rolling: bool, q, k, v, cos, sin, k_cache,
+                     v_cache, cur) -> torch.Tensor:
+    """The new token's heads and rope, its cache slots, attention over the
+    caches → ``(B, 1, H·D)`` float32 (a device's rows and heads)."""
+    B, D = q.shape[0], cfg.head_dim
+    q, k, v = (t.reshape(B, 1, -1, D) for t in (q, k, v))
     if cos is not None:
         q = _rotate(cfg, q, cos, sin)
         k = _rotate(cfg, k, cos, sin)
-    cur = _cur_lens(cur_len, B, x.device)
+    S_cache, Hkv = k_cache.shape[1], k_cache.shape[2]
     slot = torch.remainder(cur, S_cache) if rolling else cur
-    bidx = torch.arange(B, device=x.device)
-    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
+    write_slot(k_cache, slot, k[:, 0])
+    write_slot(v_cache, slot, v[:, 0])
 
-    G = H // Hkv
-    qg = q.reshape(B, Hkv, G, D) * (1.0 / math.sqrt(D))
+    qg = q.reshape(B, Hkv, -1, D) * (1.0 / math.sqrt(D))
     s = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
-    t_pos = torch.arange(S_cache, device=x.device)[None, :]
+    t_pos = torch.arange(S_cache, device=q.device)[None, :]
     if rolling:
         # the buffer holds exactly the last min(cur + 1, S_cache) tokens
         valid = t_pos < torch.clamp_max(cur[:, None] + 1, S_cache)
@@ -277,8 +314,7 @@ def gqa_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, k_cache: torch.Tensor,
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgt,bthd->bhgd", pr, v_cache.float())
-    o = o.reshape(B, 1, H * D).to(x.dtype)
-    return nn.dense(p["wo"], o), k_cache, v_cache
+    return o.reshape(B, 1, -1)
 
 
 # ===================================================================== #
@@ -301,20 +337,26 @@ def init_mla(generator: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
     }
 
 
-def _mla_qkv(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
-    """The shared projections → ``q_nope, q_rope, c_kv, k_rope`` (rotated):
-    the latent through its rmsnorm, one rope key shared by every head
-    (``(B, S, 1, dr)``)."""
-    B, S, _ = x.shape
-    H = cfg.n_heads
-    r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = nn.dense(p["wq"], x).reshape(B, S, H, dn + dr)
-    q_nope, q_rope = q[..., :dn], q[..., dn:]
+def _mla_proj(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
+    """The shared projections → packed ``q (B, S, H·(dn+dr))``, the latent
+    ``c_kv`` through its rmsnorm, the unrotated rope key ``(B, S, dr)``
+    shared by every head, and rope's ``cos, sin``."""
+    r = cfg.kv_lora_rank
+    q = nn.dense(p["wq"], x)
     kv_a = nn.dense(p["wkv_a"], x)  # (B, S, r + dr)
     c_kv = nn.rmsnorm(p["kv_norm"], kv_a[..., :r])
-    k_rope = kv_a[..., r:][:, :, None, :]
-    cos, sin = rope_cos_sin(positions, dr, cfg.rope_base)
-    return q_nope, apply_rope(q_rope, cos, sin), c_kv, apply_rope(k_rope, cos, sin)
+    cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim, cfg.rope_base)
+    return q, c_kv, kv_a[..., r:], cos, sin
+
+
+def _mla_rope(cfg: AttnConfig, q, k_rope, cos, sin):
+    """``q_nope, q_rope`` of packed ``q`` (heads split out) and the shared
+    rope key ``(B, S, 1, dr)``, both rotated."""
+    B, S = q.shape[:2]
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = q.reshape(B, S, -1, dn + dr)
+    return (q[..., :dn], apply_rope(q[..., dn:], cos, sin),
+            apply_rope(k_rope[:, :, None, :], cos, sin))
 
 
 def mla_fwd(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -322,17 +364,28 @@ def mla_fwd(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
     """Training/prefill MLA (``repro/models/attention.py:323-335``): expand
     the latent to per-head keys and values and run causal attention with
     ``scale = 1/sqrt(dn + dr)``."""
-    B, S, _ = x.shape
-    H = cfg.n_heads
     dn, dv, dr = cfg.qk_nope_dim, cfg.v_head_dim, cfg.qk_rope_dim
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
-    kv = nn.dense(p["wkv_b"], c_kv).reshape(B, S, H, dn + dv)
+    q, c_kv, k_rope, cos, sin = _mla_proj(p, cfg, x, positions)
+    kv = nn.dense(p["wkv_b"], c_kv)  # (B, S, H·(dn+dv))
+    fn = chunked_attention if impl == "chunked" else reference_attention
+    o = batch_local(functools.partial(_mla_core, cfg, fn), q, kv, k_rope, cos, sin,
+                    heads=((2, dn + dr), (2, dn + dv), None, None, None), out_heads=2)
+    return nn.dense(p["wo"], o)
+
+
+def _mla_core(cfg: AttnConfig, fn, q, kv, k_rope, cos, sin) -> torch.Tensor:
+    """Per-head keys and values from the expanded latent, causal attention
+    → ``(B, S, H·dv)`` (a device's rows and heads, on DTensors)."""
+    B, S = q.shape[:2]
+    dn, dv, dr = cfg.qk_nope_dim, cfg.v_head_dim, cfg.qk_rope_dim
+    q_nope, q_rope, k_rope = _mla_rope(cfg, q, k_rope, cos, sin)
+    kv = kv.reshape(B, S, -1, dn + dv)
+    H = kv.shape[2]
     k_nope, v = kv[..., :dn], kv[..., dn:]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
-    fn = chunked_attention if impl == "chunked" else reference_attention
     o = fn(q, k, v, causal=True, scale=1.0 / math.sqrt(dn + dr))
-    return nn.dense(p["wo"], o.reshape(B, S, H * dv))
+    return o.reshape(B, S, H * dv)
 
 
 def mla_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, ckv_cache: torch.Tensor,
@@ -349,29 +402,38 @@ def mla_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, ckv_cache: torch.Tenso
     a token at DeepSeek-V2-Lite's widths.  The new token's latent and
     rope key are written at ``cur`` in place.
     """
-    B = x.shape[0]
+    q, c_kv_new, k_rope_new, cos, sin = _mla_proj(p, cfg, x, positions)
+    cur = _cur_lens(cur_len, x.shape[0], x.device)
+    o = batch_local(functools.partial(_mla_decode_core, cfg), q, c_kv_new, k_rope_new,
+                    cos, sin, ckv_cache, krope_cache, cur, params=p["wkv_b"]["w"],
+                    writeback=(5, 6))
+    return nn.dense(p["wo"], o.to(x.dtype)), ckv_cache, krope_cache
+
+
+def _mla_decode_core(cfg: AttnConfig, w_kvb, q, c_kv_new, k_rope_new, cos, sin,
+                     ckv_cache, krope_cache, cur) -> torch.Tensor:
+    """Rope, the new token's latent slots, attention in the latent space →
+    ``(B, 1, H·dv)`` float32 (a device's rows, on DTensors)."""
+    B = q.shape[0]
     H = cfg.n_heads
     r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     S_max = ckv_cache.shape[1]
-    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, cfg, x, positions)
-    cur = _cur_lens(cur_len, B, x.device)
-    bidx = torch.arange(B, device=x.device)
-    ckv_cache[bidx, cur] = c_kv_new[:, 0].to(ckv_cache.dtype)
-    krope_cache[bidx, cur] = k_rope_new[:, 0, 0, :].to(krope_cache.dtype)
+    q_nope, q_rope, k_rope_new = _mla_rope(cfg, q, k_rope_new, cos, sin)
+    write_slot(ckv_cache, cur, c_kv_new[:, 0])
+    write_slot(krope_cache, cur, k_rope_new[:, 0, 0, :])
 
-    wkb = p["wkv_b"]["w"].reshape(r, H, dn + dv)
+    wkb = w_kvb.reshape(r, H, dn + dv)
     w_k, w_v = wkb[..., :dn], wkb[..., dn:]  # (r, H, dn), (r, H, dv)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_k.float())
     s_lat = torch.einsum("bhr,btr->bht", q_lat, ckv_cache.float())
     s_rope = torch.einsum("bhd,btd->bht", q_rope[:, 0].float(), krope_cache.float())
     s = (s_lat + s_rope) / math.sqrt(dn + dr)
-    valid = torch.arange(S_max, device=x.device)[None, :] <= cur[:, None]
+    valid = torch.arange(S_max, device=q.device)[None, :] <= cur[:, None]
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
     pr = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bht,btr->bhr", pr, ckv_cache.float())  # (B, H, r)
     o = torch.einsum("bhr,rhd->bhd", o_lat, w_v.float())  # (B, H, dv)
-    o = o.reshape(B, 1, H * dv).to(x.dtype)
-    return nn.dense(p["wo"], o), ckv_cache, krope_cache
+    return o.reshape(B, 1, H * dv)
 
 
 # ===================================================================== #

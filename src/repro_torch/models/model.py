@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import nn
+from repro_torch.models.layout import batch_rows, vocab_embed
 from repro_torch.models.nn import Params
 from repro_torch.models.transformer import (
     BlockSpec,
@@ -142,9 +143,9 @@ def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Te
         # tokens (B, S, K): sum of per-codebook embeddings (MusicGen)
         offs = torch.arange(cfg.n_codebooks, dtype=tokens.dtype,
                             device=tokens.device) * cfg.vocab
-        x = nn.embed(p["embed"], tokens + offs[None, None, :])
+        x = vocab_embed(p["embed"]["table"], tokens + offs[None, None, :])
         return x.sum(dim=2)
-    return nn.embed(p["embed"], tokens)
+    return vocab_embed(p["embed"]["table"], tokens)
 
 
 def _logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -153,7 +154,8 @@ def _logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     else:
         out = nn.dense(p["lm_head"], h)
     if cfg.n_codebooks > 1:
-        out = out.reshape(out.shape[:-1] + (cfg.n_codebooks, cfg.vocab))
+        # the codebook split of a vocab-sharded dim: gathered over model first
+        out = batch_rows(out).reshape(out.shape[:-1] + (cfg.n_codebooks, cfg.vocab))
     return out
 
 
@@ -206,9 +208,12 @@ def _ce_terms(logits_f32: torch.Tensor, labels: torch.Tensor, onehot: bool = Fal
     if onehot:
         oh = F.one_hot(labels.long(), logits_f32.shape[-1]).to(logits_f32.dtype)
         ll = torch.einsum("...v,...v->...", oh, logits_f32)
-    else:
-        ll = logits_f32.gather(-1, labels.long()[..., None])[..., 0]
-    return lse - ll, lse
+        return lse - ll, lse
+    # the trailing dim is dropped after the subtraction: on vocab-sharded
+    # DTensor logits the gather's masked partial sum is reduced at the
+    # subtraction and needs the gather's own rank there
+    ll = logits_f32.gather(-1, labels.long()[..., None])
+    return (lse[..., None] - ll)[..., 0], lse
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

@@ -29,11 +29,31 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import nn
 from repro_torch.models.ffn import ffn_fwd, init_ffn
+from repro_torch.models.layout import replicated
 from repro_torch.models.nn import Params
+
+
+# Expert-parallel layout axis.  On DTensors the expert compute (E, C, ·)
+# is laid out with its expert dim sharded on this mesh axis, the port's
+# form of JAX's sharding constraint; without it the token → slot gather
+# leaves the whole expert compute replicated on every model rank.  The
+# dry-run sets it to "model"; a plain tensor passes ``_ep`` unchanged.
+EP_AXIS: Optional[str] = None
+
+
+def _ep(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with dim 0 sharded on ``EP_AXIS``, replicated on every other
+    mesh dim (JAX's ``P(EP_AXIS, None, ...)``); a no-op on a plain tensor."""
+    if EP_AXIS is None or not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    layout = [Shard(0) if name == EP_AXIS else Replicate() for name in mesh.mesh_dim_names]
+    return x.redistribute(mesh, layout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,14 +105,16 @@ def moe_fwd(p: Params, cfg: MoeConfig, x: torch.Tensor,
         1, int(cfg.capacity_factor * T * K / E))
     # float32 activations against the router weight in float32, as JAX's
     # promotion of a float32 x and a bfloat16 w (repro/models/moe.py:90)
-    r = kernel_ops.moe_route(xt.float(), p["router"]["w"].float(), K, C, impl=impl)
-    xe = kernel_ops.moe_dispatch(xt, r.src, E, C, impl=impl, slot=r.slot)  # (E, C, d)
+    r = replicated(kernel_ops.moe_route, xt.float(), p["router"]["w"].float(), K, C,
+                    impl=impl)
+    xe = _ep(replicated(kernel_ops.moe_dispatch, xt, r.src, E, C, impl=impl,
+                         slot=r.slot))  # (E, C, d)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * torch.einsum(
         "ecd,edf->ecf", xe, p["wi_up"])
-    ye = torch.einsum("ecf,efd->ecd", h, p["wo"]).contiguous()  # (E, C, d)
+    ye = _ep(torch.einsum("ecf,efd->ecd", _ep(h), p["wo"])).contiguous()  # (E, C, d)
 
-    y = kernel_ops.moe_combine(ye, r.slot, r.vals, impl=impl)
+    y = replicated(kernel_ops.moe_combine, ye, r.slot, r.vals, impl=impl, like=xt)
     if "shared" in p:
         y = y + ffn_fwd(p["shared"], xt, "swiglu")
     return y.reshape(B, S, d), r.aux

@@ -77,10 +77,9 @@ def mrope_cos_sin(
         raise ValueError(f"mrope sections {tuple(sections)} must sum to {half}")
     inv = rope_freqs(head_dim, base, device=positions.device)
     ang = positions.float()[..., None] * inv  # (3, ..., S, half)
-    owner = torch.repeat_interleave(
-        torch.arange(len(sections), device=positions.device),
-        torch.tensor(list(sections), device=positions.device),
-    )
+    # the section table from the host: a meta tensor cannot size a repeat
+    owner = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                         device=positions.device)
     ang_sel = torch.zeros(ang.shape[1:], dtype=ang.dtype, device=ang.device)
     for i in range(len(sections)):
         ang_sel = torch.where(owner == i, ang[i], ang_sel)

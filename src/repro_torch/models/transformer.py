@@ -19,10 +19,16 @@ stacked leaf and state.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.models import nn
 from repro_torch.models.attention import (
@@ -33,6 +39,7 @@ from repro_torch.models.attention import (
     mla_decode,
 )
 from repro_torch.models.ffn import ffn_fwd, init_ffn
+from repro_torch.models.layout import batch_local, batch_rows
 from repro_torch.models.moe import MoeConfig, init_moe, moe_fwd
 from repro_torch.models.nn import Params
 from repro_torch.models.ssm import (
@@ -137,25 +144,26 @@ def block_fwd(p: Params, spec: BlockSpec, x: torch.Tensor, positions: torch.Tens
     """One pre-norm block → ``(y, aux_loss)``
     (``repro/models/transformer.py:117-148``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = batch_rows(x)
     h = nn.rmsnorm(p["norm1"], x)
     if spec.kind == "attn":
         y = attention_fwd(p["attn"], spec.attn, h, positions, impl=impl)
         if lora is not None:
             y = y + lora_delta(lora, h)
-    elif spec.kind == "mamba2":
-        y = mamba2_fwd(p["mixer"], spec.mamba, h)
-    elif spec.kind == "mlstm":
-        y = mlstm_fwd(p["mixer"], spec.mlstm, h)
     else:
-        y = slstm_fwd(p["mixer"], spec.slstm, h)
-    x = x + y
+        # a recurrent mixer: each sequence on its own, its weights replicated
+        fwd = {"mamba2": (mamba2_fwd, spec.mamba), "mlstm": (mlstm_fwd, spec.mlstm),
+               "slstm": (slstm_fwd, spec.slstm)}
+        fn, cfg = fwd[spec.kind]
+        y = batch_local(lambda pm, hh: fn(pm, cfg, hh), h, params=p["mixer"])
+    x = x + batch_rows(y)
     if spec.has_ffn:
         h2 = nn.rmsnorm(p["norm2"], x)
         if spec.moe is not None:
             y2, aux = moe_fwd(p["moe"], spec.moe, h2)
         else:
             y2 = ffn_fwd(p["ffn"], h2, spec.ffn_kind)
-        x = x + y2
+        x = x + batch_rows(y2)
     return x, aux
 
 
@@ -231,6 +239,27 @@ def _per_repeat(p: Params, n_repeats: int) -> Tuple[list, list]:
     return blocks, loras
 
 
+REMAT_POLICIES = (None, "dots")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective checkpointing: keep matmul outputs without batch dims."""
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint_contexts(remat_policy):
+    """``checkpoint``'s ``context_fn`` for a remat policy."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; "
+                         f"choose one of {REMAT_POLICIES}")
+    if remat_policy is None:
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts, _save_dots)
+
+
 def stack_fwd(p: Params, pattern: Sequence[BlockSpec], n_repeats: int,
               x: torch.Tensor, positions: torch.Tensor, impl: str = "chunked",
               remat: bool = False, remat_policy=None
@@ -244,11 +273,14 @@ def stack_fwd(p: Params, pattern: Sequence[BlockSpec], n_repeats: int,
     (``torch.utils.checkpoint``, non-reentrant): the same operations run
     again, so the gradients are those of ``remat=False`` bit for bit, and
     an MoE block launches its routing kernels twice a step.
+    ``remat_policy`` picks what a rematerialised block keeps: None
+    recomputes everything; ``"dots"`` (JAX's
+    ``dots_with_no_batch_dims_saveable``) saves the outputs of matmuls
+    without batch dims (``aten.mm``, ``aten.addmm``) and recomputes the
+    rest, ``aten.bmm`` and the MoE kernels (which the dispatcher does not
+    see) among it.
     """
-    if remat_policy is not None:
-        raise NotImplementedError(
-            "remat_policy is a JAX checkpoint policy; the port recomputes whole "
-            "blocks only: ROADMAP Queue 1 item 7, 'mesh, shardings and dry-run'")
+    context_fn = _checkpoint_contexts(remat_policy)
     # each stacked leaf split once into its repeats: the backward of an
     # unbind is one stack, where indexing [r] repeat by repeat would add up
     # n_repeats gradients of the whole stacked leaf
@@ -259,7 +291,8 @@ def stack_fwd(p: Params, pattern: Sequence[BlockSpec], n_repeats: int,
         for pos, spec in enumerate(pattern):
             args = (blocks[pos][r], spec, h, positions, loras[pos][r], impl)
             if remat:
-                h, a = checkpoint(block_fwd, *args, use_reentrant=False)
+                h, a = checkpoint(block_fwd, *args, use_reentrant=False,
+                                  context_fn=context_fn)
             else:
                 h, a = block_fwd(*args)
             aux = aux + a
@@ -301,6 +334,7 @@ def block_decode(p: Params, spec: BlockSpec, x: torch.Tensor, state: Params,
     windowed layer whose cache holds exactly ``window`` slots decodes over
     it as a rolling buffer), a recurrent mixer's new state is copied into
     its tensors."""
+    x = batch_rows(x)
     h = nn.rmsnorm(p["norm1"], x)
     if spec.kind == "attn":
         a = spec.attn
@@ -317,17 +351,18 @@ def block_decode(p: Params, spec: BlockSpec, x: torch.Tensor, state: Params,
         step = {"mamba2": (mamba2_decode, spec.mamba), "mlstm": (mlstm_decode, spec.mlstm),
                 "slstm": (slstm_decode, spec.slstm)}
         fn, cfg = step[spec.kind]
-        y, new = fn(p["mixer"], cfg, h, state)
+        y, new = batch_local(lambda pm, hh, st: fn(pm, cfg, hh, st), h, state,
+                             params=p["mixer"])
         for k, t in state.items():
             t.copy_(new[k])
-    x = x + y
+    x = x + batch_rows(y)
     if spec.has_ffn:
         h2 = nn.rmsnorm(p["norm2"], x)
         if spec.moe is not None:
             y2, _ = moe_fwd(p["moe"], spec.moe, h2)
         else:
             y2 = ffn_fwd(p["ffn"], h2, spec.ffn_kind)
-        x = x + y2
+        x = x + batch_rows(y2)
     return x, state
 
 

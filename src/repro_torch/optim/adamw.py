@@ -27,6 +27,7 @@ import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import nn
 
@@ -128,10 +129,25 @@ def _copy(x: torch.Tensor) -> torch.Tensor:
     return out.copy_(x)
 
 
+def _update_dtensor_leaf(p, g, m, v, w, hp: HyperParams) -> None:
+    """A DTensor leaf (the dry-run): the gradient and parameter are laid
+    out as the state (ZeRO-1 shards it further over ``data``), the update
+    runs there, and the parameter takes the new value in its own layout."""
+    mesh, layout = m.device_mesh, m.placements
+    g = g.redistribute(mesh, layout)
+    base = w if w is not None else p.redistribute(mesh, layout)
+    new = base.detach().clone() if w is None else base
+    _update_chunk(new, g, m, v, *([w] if w is not None else []), hp=hp)
+    p.copy_(new.redistribute(p.device_mesh, p.placements))
+
+
 def _update_leaf(p, g, m, v, w, hp: HyperParams) -> bool:
     """Update one leaf in place (``p``, ``m``, ``v`` and the master copy
     ``w`` or None) in flat chunks; a state leaf in host memory is
     streamed to ``p``'s device.  Returns whether one was."""
+    if isinstance(p, DTensor):
+        _update_dtensor_leaf(p, g, m, v, w, hp)
+        return False
     dev = p.device
     state = [t for t in (m, v, w) if t is not None]
     host = [t.device != dev for t in state]

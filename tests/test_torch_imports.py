@@ -49,7 +49,10 @@ def test_no_jax_or_repro_import(path):
 def test_port_covers_its_layout():
     names = {p.relative_to(REPO / "src" / "repro_torch").parts[0] for p in PACKAGE}
     assert {"core", "kernels", "models", "serving", "configs", "launch", "analysis",
-            "qos", "traffic", "benchmarks", "fleet", "optim", "data", "checkpoint"} <= names
+            "qos", "traffic", "benchmarks", "fleet", "optim", "data", "checkpoint",
+            "examples"} <= names
+    launch = {p.name for p in (REPO / "src" / "repro_torch" / "launch").glob("*.py")}
+    assert {"mesh.py", "shardings.py", "dryrun.py", "dryrun_update.py"} <= launch
 
 
 def test_serving_engine_import_loads_no_jax():
@@ -63,7 +66,10 @@ def test_serving_engine_import_loads_no_jax():
             "repro_torch.optim.offload, repro_torch.checkpoint, repro_torch.data, "
             "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.launch.generate, "
             "repro_torch.models.ssm, repro_torch.configs.zamba2_2_7b, "
-            "repro_torch.configs.xlstm_350m; "
+            "repro_torch.configs.xlstm_350m, repro_torch.examples.quickstart, "
+            "repro_torch.examples.serve_tiered, repro_torch.examples.train_e2e, "
+            "repro_torch.launch.mesh, repro_torch.launch.shardings, "
+            "repro_torch.launch.dryrun, repro_torch.launch.dryrun_update; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax')); "
             "assert not any(m == 'repro' or m.startswith('repro.') "

@@ -214,7 +214,7 @@ def test_remat_gradients_equal_plain_bit_for_bit(arch):
     assert torch.equal(l0, l1)
     for a, b in zip(tnn.tree_leaves(g0), tnn.tree_leaves(g1)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="mesh, shardings and dry-run"):
+    with pytest.raises(ValueError, match="remat_policy"):
         tmodel.loss_fn(tp, tcfg, batch, remat=True, remat_policy=object())
 
 
