@@ -102,6 +102,16 @@ WORKLOADS: Dict[str, WorkloadSpec] = {
 }
 
 
+def _zipf_trial(u: float, v: float, inv: float, am1: float, b: float) -> Optional[int]:
+    """One trial of numpy 2.0's Zipf rejection loop in C's own arithmetic
+    (``math.pow`` is libm's ``pow``): the rank, or None if rejected."""
+    x = math.floor(math.pow(u, inv))
+    if x > 9223372036854775807 or x < 1.0:
+        return None
+    t = math.pow(1.0 + 1.0 / x, am1)
+    return x if v * x * (t - 1.0) / (b - 1.0) <= t / b else None
+
+
 def zipf_ranks(rng: np.random.Generator, a: float, n: int) -> np.ndarray:
     """``n`` Zipf(``a``) draws from ``rng``, by numpy 2.0's rejection
     method, drawing from ``rng`` exactly as ``rng.zipf(a, size=n)`` does
@@ -111,21 +121,31 @@ def zipf_ranks(rng: np.random.Generator, a: float, n: int) -> np.ndarray:
     version; this keeps the traces JAX's reference makes under numpy 2.0.
     A trial takes two doubles (``U``, ``V``) in order, as numpy's C loop
     does, and each batch asks only for the draws still missing, so the
-    generator ends where numpy's would."""
+    generator ends where numpy's would.  The trials are evaluated as
+    arrays; a trial whose rank or verdict lies within 1e-9 of a boundary
+    is decided again by :func:`_zipf_trial`, so a vectorised ``pow``
+    that differs from libm's in the last bits changes nothing."""
     am1 = a - 1.0
     inv = -1.0 / am1
     b = 2.0 ** am1
-    pow_, floor = math.pow, math.floor
     out: List[int] = []
     while len(out) < n:
-        draws = rng.random(2 * (n - len(out))).tolist()
-        for u, v in zip(draws[::2], draws[1::2]):
-            x = floor(pow_(1.0 - u, inv))
-            if x > 9223372036854775807 or x < 1.0:
-                continue
-            t = pow_(1.0 + 1.0 / x, am1)
-            if v * x * (t - 1.0) / (b - 1.0) <= t / b:
-                out.append(x)
+        d = rng.random(2 * (n - len(out)))
+        u, v = 1.0 - d[0::2], d[1::2]
+        with np.errstate(over="ignore", divide="ignore", invalid="ignore"):
+            xf = np.power(u, inv)
+            x = np.floor(xf)
+            ok = (x >= 1.0) & (x <= 9223372036854775807)
+            t = np.power(1.0 + 1.0 / np.where(ok, x, 1.0), am1)
+            lhs = v * x * (t - 1.0) / (b - 1.0)
+            rhs = t / b
+            rank = np.where(ok & (lhs <= rhs), x, np.nan)
+            near = ((np.abs(xf - np.rint(xf)) <= 1e-9 * xf)
+                    | (np.abs(lhs - rhs) <= 1e-9 * np.abs(rhs)))
+        for i in np.flatnonzero(near):
+            r = _zipf_trial(float(u[i]), float(v[i]), inv, am1, b)
+            rank[i] = np.nan if r is None else r
+        out.extend(rank[~np.isnan(rank)].astype(np.int64).tolist())
     return np.asarray(out, dtype=np.int64)
 
 
