@@ -163,3 +163,22 @@ def test_gqa_core_on_a_devices_query_heads_equals_the_whole(tp):
     for r in range(tp):
         part = core(r, q[..., r * w:(r + 1) * w], k, v, cos, sin)
         assert torch.equal(part, whole[..., r * w:(r + 1) * w])
+
+
+def test_dryrun_update_merges_rerun_cells(tmp_path):
+    """``dryrun_update`` replaces a cell's rows on both meshes and keeps
+    the others (a skipped cell runs no trace)."""
+    import json
+
+    from repro_torch.launch import dryrun_update
+
+    out = tmp_path / "results.json"
+    keep = {"arch": "gemma3-4b", "shape": "train_4k", "mesh": "16x16", "status": "ok"}
+    stale = {"arch": "tinyllama-1.1b", "shape": "long_500k", "mesh": "16x16",
+             "status": "FAILED"}
+    out.write_text(json.dumps([keep, stale]))
+    dryrun_update.main(["--cells", "tinyllama-1.1b:long_500k", "--out", str(out)])
+    rows = json.loads(out.read_text())
+    assert rows[0] == keep
+    assert [(r["mesh"], r["status"]) for r in rows[1:]] == [("16x16", "skipped"),
+                                                            ("2x16x16", "skipped")]
