@@ -225,6 +225,22 @@ family and kind on both production meshes) run from the start as
 background host processes and must each be ``ok`` with their pinned
 per-device argument bytes.
 
+Then (``[benchmarks]``) the port's benchmark suites
+(``repro_torch.benchmarks``): ``kernel_bench``'s four cases (the JAX
+benchmark's shapes: ``flash_attention`` (1, 8, 512, 64) with Hkv=2,
+``paged_attention`` B=8, H=16, Hkv=4, P=16, MP=16 over 128 frames,
+``page_gather`` of 32 of 256 (16, 64) frames, ``router_topk`` T=4096,
+E=64, k=6) timed with kernel, plain and library µs and the bound,
+launches exactly ``WARMUP + ITERS`` a case, each kernel then held to
+its plain version at phase 2's tolerance; ``serving_bench --smoke
+--quick`` on weights built once on the CPU, card and CPU runs with equal
+tokens and QoS numbers, every serving kernel launched on the card;
+``serving_bench --quick`` at full width (tokens/s per plane and batch,
+planes equal); ``roofline`` over ``[dryrun]``'s cells; ``perf_iterations
+--variants baseline`` on ``PERF_CELL``, counts equal to ``[dryrun]``'s;
+``run.py --only kernels,roofline`` in a process of its own, no
+``/ERROR`` row; ``repro_lint`` over the port's tree, clean.
+
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the result lines; there is no CPU fallback.
@@ -316,36 +332,15 @@ def ptxas_usage(text: str):
 # --------------------------------------------------------------------- #
 # timing
 # --------------------------------------------------------------------- #
-LEAD_CYCLES = 2_000_000  # about 1 ms of spinning at the H100's clock
-
-
 def time_ms(torch, fn, flush, iters: int = 50, warmup: int = 3) -> float:
     """Mean device time of one call with a cold L2 (the decode step
     streams ~46 MB of FFN weights between attention layers, so the store
-    is cold when the kernel runs).
+    is cold when the kernel runs): ``kernel_bench.device_us`` (a read of
+    all of ``flush``, then a spin while the host queues the call, before
+    each call), in ms."""
+    from repro_torch.benchmarks.kernel_bench import device_us
 
-    Before each call the card reads the whole ``flush`` buffer (256 MB, a
-    sum into one element), which leaves L2 full of clean lines: writing
-    the buffer instead would leave dirty lines whose write-back runs
-    inside the timed call.  Then it spins for ``LEAD_CYCLES`` (a kernel
-    that touches no memory) while the host queues the call, so the
-    interval between the events holds the call's device work and not
-    the host's Python and launch overhead.
-    """
-    sink = torch.empty((), dtype=flush.dtype, device=flush.device)
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for i in range(iters):
-        torch.sum(flush, dim=0, out=sink)
-        torch.cuda._sleep(LEAD_CYCLES)
-        starts[i].record()
-        fn()
-        ends[i].record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+    return device_us(fn, flush, iters, warmup) / 1e3
 
 
 def bound(nbytes: float, flops: float, dtype: str = "float32"):
@@ -1646,7 +1641,9 @@ def main() -> None:
     fails = []
     launches_by_path.update(examples_phase(torch, smi, fails))
     remat_phase(torch, smi, fails)
-    finish_dryrun(dryrun_procs, fails)
+    dryrun_cells = finish_dryrun(dryrun_procs, fails)
+    # ---------------- [benchmarks]: the port's benchmark suites -------- #
+    launches_by_path.update(benchmarks_phase(torch, smi, rows, fails, dryrun_cells))
     if fails:
         fail("; ".join(fails))
 
@@ -3846,41 +3843,47 @@ REMAT_MODES = (("none", {"remat": False}), ("full", {"remat": True}),
 ALLOC_ROUND = 512  # the CUDA caching allocator's block granularity
 
 
-def start_dryrun():
-    """[dryrun], in the background from the start: one process a cell of
-    ``DRYRUN_CELLS``, both meshes, at the lowest CPU priority and with no
-    card visible (the fake mesh needs none).  Stopped at exit whatever
-    happens."""
+def host_process(args, log_path):
+    """A ``python -m`` run of the port on the host alone (no card
+    visible, lowest CPU priority), its output into ``log_path``; stopped
+    at exit whatever happens."""
     import atexit
 
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen([sys.executable, "-m"] + args, cwd=ROOT, env=env,
+                                stdout=logf, stderr=subprocess.STDOUT,
+                                preexec_fn=lambda: os.nice(19))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def start_dryrun():
+    """[dryrun], in the background from the start: one host process a
+    cell of ``DRYRUN_CELLS``, both meshes (the fake mesh needs no
+    card)."""
     out = ROOT / "build" / "dryrun"
     out.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     procs = []
     for arch, shape in DRYRUN_CELLS:
         stem = out / f"{arch}_{shape}"
-        logf = open(f"{stem}.log", "w")
-        procs.append(((arch, shape), stem, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-             "--shape", shape, "--both-meshes", "--out", f"{stem}.json"],
-            cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT,
-            preexec_fn=lambda: os.nice(19))))
-        logf.close()
-
-    def stop():
-        for _, _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-
-    atexit.register(stop)
+        procs.append(((arch, shape), stem, host_process(
+            ["repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--both-meshes", "--out", f"{stem}.json"], f"{stem}.log")))
     return procs
 
 
 def finish_dryrun(procs, fails):
     """Wait for the [dryrun] cells: each must be ``ok`` on both meshes
-    with its pinned per-device argument bytes."""
+    with its pinned per-device argument bytes.  Returns their rows."""
     t0 = time.perf_counter()
+    cells = []
     for (arch, shape), stem, p in procs:
         rc = p.wait()
         if rc != 0:
@@ -3888,6 +3891,7 @@ def finish_dryrun(procs, fails):
             fails.append(f"[dryrun] {arch} {shape} exited {rc}: {tail}")
             continue
         rows = json.loads(Path(f"{stem}.json").read_text())
+        cells += rows
         for row, want in zip(rows, DRYRUN_CELLS[(arch, shape)]):
             log(f"[dryrun] {json.dumps(row)}")
             if row["status"] != "ok":
@@ -3897,6 +3901,7 @@ def finish_dryrun(procs, fails):
                              f"{row['argument_size_in_bytes']}, pinned {want}")
     log(f"[dryrun] {len(procs)} cells × 2 meshes on the host, waited "
         f"{time.perf_counter() - t0:.1f} s at the end")
+    return cells
 
 
 def quiet(fn, *args, **kwargs):
@@ -4178,6 +4183,167 @@ def remat_phase(torch, smi, fails):
     torch.cuda.empty_cache()
     log(f"[remat] phase took {time.perf_counter() - t0:.1f} s")
     return timing
+
+
+# --------------------------------------------------------------------- #
+# [benchmarks]: the port's benchmark suites on the card
+# --------------------------------------------------------------------- #
+# phase 2's tolerances for kernel_bench's kernels against their plain versions
+BENCH_TOL = {"flash_attention": TOL["float32"], "paged_attention": TOL["float32"],
+             "page_gather": 0.0, "router_topk": 1e-6}
+# the dry-run cell perf_iterations re-traces (0.7-0.8 s a mesh on the host)
+PERF_CELL = ("xlstm-350m", "decode_32k")
+SERVING_KERNELS = ("paged_attention", "flash_attention", "page_gather", "page_scatter")
+
+
+def check_kernel_bench(torch, rows, fails):
+    """kernel_bench on the card: its four lines; launches exactly
+    ``WARMUP + ITERS`` a case of its kernel and nothing else; each case's
+    kernel against its plain version on the same inputs at phase 2's
+    tolerance (after the counts are read)."""
+    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    measured = kernel_bench.measure("cuda")
+    launches = ops.launch_counts()
+    cases = kernel_bench.cases("cuda")  # the same seed: the inputs measured
+    want = dict.fromkeys(launches, 0)
+    for c in cases:
+        want[c.kernel] += kernel_bench.WARMUP + kernel_bench.ITERS
+    if launches != want:
+        fails.append(f"[benchmarks] kernel_bench launches {launches}, expected {want}")
+    by_kernel = {r["name"]: r for r in rows}
+    for c, m in zip(cases, measured):
+        got, ref = c.call("kernel"), c.call("ref")
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        floats = [(g, w) for g, w in zip(got, ref) if g.is_floating_point()]
+        err = max((g - w).abs().max().item() for g, w in floats)
+        tol = BENCH_TOL[c.kernel]
+        ok = all(bool(torch.isfinite(g).all()) for g, _ in floats)
+        if c.kernel in ("flash_attention", "paged_attention"):
+            ok &= all(torch.allclose(g, w, atol=tol, rtol=tol) for g, w in floats)
+        else:  # the copy exact; the router's probs and gates within tol, indices equal
+            ok &= err <= tol and all(torch.equal(g, w) for g, w in zip(got, ref)
+                                     if not g.is_floating_point())
+        if not ok:
+            fails.append(f"[benchmarks] kernel_bench {c.name}: max_abs_err {err} (tol {tol})")
+        m["max_abs_err"] = err
+        log(f"[benchmarks] {kernel_bench.line(m)};max_abs_err={err} (tol {tol})")
+        by_kernel[c.kernel]["kernel_bench"] = {
+            "case": f"{c.name} {c.tag}", "max_abs_err": err, "tolerance": tol,
+            **{k: m[k] for k in ("us", "plain_us", "library_us", "bound_us", "bound_by")}}
+    return launches
+
+
+def benchmarks_phase(torch, smi, rows, fails, dryrun_cells):
+    """[benchmarks]: ``kernel_bench`` on the card (``check_kernel_bench``);
+    ``serving_bench --smoke --quick`` on weights built once on the CPU,
+    on the card and on the CPU, tokens and QoS numbers equal, each
+    serving kernel launched on the card; ``serving_bench --quick`` at
+    full width (tokens/s per plane and batch); ``roofline`` over the
+    [dryrun] cells' JSON (``dryrun_cells``); ``perf_iterations
+    --variants baseline`` on ``PERF_CELL``, its counts equal to that
+    cell's; ``run.py --only kernels,roofline`` in a process of its own,
+    no ``/ERROR`` row; ``repro_lint`` over the port's tree, clean.
+    Returns the launch counts by run."""
+    from repro_torch.analysis.repro_lint import lint_paths
+    from repro_torch.benchmarks import roofline, serving_bench
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "benchmarks"
+    out.mkdir(parents=True, exist_ok=True)
+    arch, shape = PERF_CELL
+    perf_log = out / "perf_log.json"
+    perf_log.unlink(missing_ok=True)
+    perf = host_process(["repro_torch.benchmarks.perf_iterations", "--arch", arch,
+                         "--shape", shape, "--variants", "baseline", "--out",
+                         str(perf_log)], out / "perf_iterations.log")
+    launches = {"benchmarks/kernel_bench": check_kernel_bench(torch, rows, fails)}
+
+    # serving_bench at the smoke config: one set of weights, card and CPU
+    smoke = get_smoke_config(serving_bench.MODEL)
+    cpu_params = init_params(smoke, torch.Generator().manual_seed(0), device="cpu")
+    ops.reset_launch_counts()
+    card = serving_bench.measure(smoke, tree_to(cpu_params, "cuda"), quick=True,
+                                 device="cuda")
+    launches["benchmarks/serving_bench --smoke"] = ops.launch_counts()
+    host = serving_bench.measure(smoke, cpu_params, quick=True, device="cpu")
+    qos = card["payload"]["qos_noisy_neighbor"]
+    same = (card["tokens"] == host["tokens"]
+            and qos == host["payload"]["qos_noisy_neighbor"])
+    if not same:
+        fails.append(f"[benchmarks] serving_bench --smoke: card {card['tokens']} {qos}, "
+                     f"cpu {host['tokens']} {host['payload']['qos_noisy_neighbor']}")
+    counts = launches["benchmarks/serving_bench --smoke"]
+    if not all(counts[k] > 0 for k in SERVING_KERNELS) or any(
+            n for k, n in counts.items() if k not in SERVING_KERNELS):
+        fails.append(f"[benchmarks] serving_bench --smoke launches {counts}")
+    log(f"[benchmarks] serving_bench --smoke --quick: tokens and QoS equal to the CPU "
+        f"run's: {same}; QoS {json.dumps(qos)}; launches {json.dumps(counts)}")
+    del cpu_params
+
+    # serving_bench at full width, weights seeded 0 on the card
+    cfg = get_config(serving_bench.MODEL)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    ops.reset_launch_counts()
+    full = serving_bench.measure(cfg, params, quick=True, device="cuda")
+    launches["benchmarks/serving_bench"] = ops.launch_counts()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in full["lines"]:
+        log(f"[benchmarks] {line}")
+    log(f"[benchmarks] serving_bench --quick {cfg.name} (full width): "
+        f"{json.dumps(full['payload'])}; launches "
+        f"{json.dumps(launches['benchmarks/serving_bench'])}; {smi}")
+
+    # roofline over the [dryrun] cells, then the driver over the same JSON
+    cells_json = out / "dryrun_cells.json"
+    cells_json.write_text(json.dumps(dryrun_cells, indent=1))
+    lines = roofline.run(dryrun=str(cells_json))
+    for line in lines:
+        log(f"[benchmarks] {line}")
+    if len(lines) != sum(1 for c in dryrun_cells if c["mesh"] == "16x16"):
+        fails.append(f"[benchmarks] roofline printed {lines}")
+    driver = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "--quick", "--only",
+         "kernels,roofline", "--dryrun", str(cells_json)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    for line in driver.stdout.splitlines():
+        log(f"[benchmarks] run.py: {line}")
+    if driver.returncode != 0 or "/ERROR" in driver.stdout:
+        fails.append(f"[benchmarks] run.py exited {driver.returncode}: "
+                     f"{driver.stdout[-1000:]} {driver.stderr[-2000:]}")
+
+    # perf_iterations' baseline: the [dryrun] cell's counts and the H100's terms
+    if perf.wait(timeout=600) != 0:
+        fails.append(f"[benchmarks] perf_iterations exited {perf.returncode}: "
+                     f"{(out / 'perf_iterations.log').read_text()[-2000:]}")
+    else:
+        entry, = json.loads(perf_log.read_text())
+        cell = [c for c in dryrun_cells if (c["arch"], c["shape"], c["mesh"])
+                == (arch, shape, "16x16")] or [{}]
+        same = all(entry[k] == cell[0].get(k) for k in ("flops", "bytes_accessed",
+                                                        "collective_total"))
+        if not same or entry["t_compute"] != roofline.terms(cell[0])["t_compute"]:
+            fails.append(f"[benchmarks] perf_iterations {entry} against the cell {cell}")
+        log(f"[benchmarks] perf_iterations --variants baseline {arch} {shape}: "
+            f"{json.dumps(entry)}; counts equal to [dryrun]'s: {same}")
+
+    findings = lint_paths([str(ROOT / "src" / "repro_torch"), str(ROOT / "chip_smoke.py"),
+                           str(ROOT / "tools")])
+    if findings:
+        fails.append("[benchmarks] repro_lint: " + "; ".join(str(f) for f in findings))
+    log(f"[benchmarks] repro_lint src/repro_torch chip_smoke.py tools: "
+        f"{len(findings)} finding(s); phase took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def meminfo_bytes(key: str) -> int:

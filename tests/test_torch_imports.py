@@ -53,6 +53,23 @@ def test_port_covers_its_layout():
             "examples"} <= names
     launch = {p.name for p in (REPO / "src" / "repro_torch" / "launch").glob("*.py")}
     assert {"mesh.py", "shardings.py", "dryrun.py", "dryrun_update.py"} <= launch
+    analysis = {p.name for p in (REPO / "src" / "repro_torch" / "analysis").glob("*.py")}
+    assert {"plan_verify.py", "tiersan.py", "repro_lint.py"} <= analysis
+    # every module of the JAX package's benchmarks/ has its counterpart
+    jax_benchmarks = {p.name for p in (REPO / "benchmarks").glob("*.py")}
+    benchmarks = {p.name for p in (REPO / "src" / "repro_torch" / "benchmarks").glob("*.py")}
+    assert {"common.py", "run.py", "kernel_bench.py", "serving_bench.py",
+            "table1_throughput.py", "chameleon_heatmap.py", "fig_ablation.py",
+            "table2_type_aware.py", "table3_tmo.py", "engine_bench.py", "qos_bench.py",
+            "roofline.py", "perf_iterations.py", "render_tables.py", "traffic_bench.py",
+            "expert_tiering.py", "fleet_bench.py"} <= benchmarks
+    assert jax_benchmarks <= benchmarks
+    # file by file, the JAX package has no module the port lacks, but
+    # kernels/ref.py: each port kernel module holds its own plain version
+    jax_tree = {p.relative_to(REPO / "src" / "repro").as_posix()
+                for p in (REPO / "src" / "repro").rglob("*.py")}
+    port_tree = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in PACKAGE}
+    assert jax_tree - port_tree == {"kernels/ref.py"}
 
 
 def test_serving_engine_import_loads_no_jax():
@@ -69,7 +86,15 @@ def test_serving_engine_import_loads_no_jax():
             "repro_torch.configs.xlstm_350m, repro_torch.examples.quickstart, "
             "repro_torch.examples.serve_tiered, repro_torch.examples.train_e2e, "
             "repro_torch.launch.mesh, repro_torch.launch.shardings, "
-            "repro_torch.launch.dryrun, repro_torch.launch.dryrun_update; "
+            "repro_torch.launch.dryrun, repro_torch.launch.dryrun_update, "
+            "repro_torch.analysis.repro_lint, repro_torch.benchmarks.run, "
+            "repro_torch.benchmarks.kernel_bench, repro_torch.benchmarks.serving_bench, "
+            "repro_torch.benchmarks.table1_throughput, "
+            "repro_torch.benchmarks.chameleon_heatmap, repro_torch.benchmarks.fig_ablation, "
+            "repro_torch.benchmarks.table2_type_aware, repro_torch.benchmarks.table3_tmo, "
+            "repro_torch.benchmarks.engine_bench, repro_torch.benchmarks.qos_bench, "
+            "repro_torch.benchmarks.roofline, repro_torch.benchmarks.perf_iterations, "
+            "repro_torch.benchmarks.render_tables; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax')); "
             "assert not any(m == 'repro' or m.startswith('repro.') "
