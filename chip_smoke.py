@@ -8,7 +8,8 @@ Run from the root of a checkout.  Builds the port's CUDA kernels from
 into ``build/``) and runs these phases:
 
 1. **Device** — the card's name and power limit, torch and CUDA
-   versions; TF32 off for matmul and cuDNN (float32 throughout).
+   versions; TF32 off for matmul and cuDNN, and cuBLAS's
+   reduced-precision bfloat16 sums off.
 2. **Kernels** — each of the eight kernels against its plain PyTorch
    version on the card: ``paged_attention`` at the decode shapes of
    tinyllama-1.1b (H=32, Hkv=4, D=64) and phi3.5-moe (H=32, Hkv=8,
@@ -206,6 +207,22 @@ training steps within ``TRAIN_SMOKE_TOL`` and 10 decode steps within
 spread over one-ulp changes of its weights (``SPREAD_ARCHS``); and a
 config of tinyllama's smoke widths with a shared attention block served
 on both planes, cuda equal to cpu, launches exact.
+
+Then (``[bf16]``) bfloat16 weights: ``moe_dispatch``, ``moe_combine``
+(also rounding each partial sum: the dispatch's backward) and
+``moe_combine_bwd`` on bfloat16 rows bit for bit with their plain
+versions at phi3.5-moe's and deepseek-v2-lite's shapes (``dvals``
+within ``DVALS_REL``), ``paged_attention`` with a bfloat16 q over the
+engine's float32 store, ``moe_route`` at deepseek's router for T =
+16,448 and 32,768 (past the tile counts its last block stages), each
+timed; phi3.5-moe cut to 8 layers served in bfloat16 (placement equal
+to the float32 run's), deepseek-v2-lite's 27 layers through
+``decode_step`` (greedy, and the drop-free forward against decode
+within ``BF16_FWD_DECODE_REL``), phi3.5-moe cut to 2 layers through
+``train_loop`` in bfloat16 and then float32 (losses side by side), and
+the seven served archs' smoke lifecycles in bfloat16 cuda against cpu
+on both planes (equal, or equal up to a near tie of the CPU's logits
+within one bfloat16 ulp).
 
 Then (``[examples]``) the three examples of ``repro_torch.examples``:
 quickstart's text equal to JAX's (``QUICKSTART_OUTPUT``, host only);
@@ -1637,6 +1654,8 @@ def main() -> None:
     launches_by_path.update(decode_phase(torch, smi, rows))
     # ---------------- [ssm]: the recurrent mixers, shared blocks ------- #
     launches_by_path.update(ssm_phase(torch, smi))
+    # ---------------- [bf16]: bfloat16 weights on the card ------------- #
+    launches_by_path.update(bf16_phase(torch, smi, rows, moe_full))
     # ---------------- [examples], [remat], then [dryrun]'s cells ------- #
     fails = []
     launches_by_path.update(examples_phase(torch, smi, fails))
@@ -1665,10 +1684,12 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def serve_phase(torch, name, cfg, ecfg):
+def serve_phase(torch, name, cfg, ecfg, dtype=None, tag="serve"):
     """Serve ``cfg`` at full width on the card with launch counts set to 0
     just before and read just after; check the counts, tiering, tokens
-    and the pool's invariants.  Frees the weights before it returns."""
+    and the pool's invariants; then trace a short decode.  ``dtype``: the
+    weights' type (default float32).  Frees the weights before it
+    returns."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import check_fits, profile_decode, serve
     from repro_torch.models.model import init_params, param_bytes
@@ -1677,12 +1698,13 @@ def serve_phase(torch, name, cfg, ecfg):
     check_fits(cfg, "cuda")  # refuses, rather than cuts, a model that does not fit
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
+    dtype = dtype or torch.float32
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
+                         device="cuda", dtype=dtype)
     torch.cuda.synchronize()
-    log(f"[serve] {name} full width: {cfg.n_layers} layers, d={cfg.d_model}, "
-        f"params {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G float32, "
-        f"built in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] {name} full width: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"params {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G "
+        f"{str(dtype).replace('torch.', '')}, built in {time.perf_counter() - t0:.1f} s")
     ops.reset_launch_counts()
     res = serve(cfg, params, ecfg, requests=requests, prompt_len=prompt_len,
                 max_new=max_new, seed=0, device="cuda")
@@ -1690,17 +1712,18 @@ def serve_phase(torch, name, cfg, ecfg):
     stats = res["stats"]
     peak = torch.cuda.max_memory_allocated()
     summary = {
-        "arch": name, "layers": cfg.n_layers, "steps": res["steps"],
+        "arch": name, "dtype": str(dtype).replace("torch.", ""), "layers": cfg.n_layers,
+        "steps": res["steps"],
         "n_tokens": res["n_tokens"], "ms_per_step": res["ms_per_step"],
         "tokens_per_s": res["tokens_per_s"], "prefill_s": res["prefill_s"],
         "weight_bytes": param_bytes(cfg), "peak_device_memory_bytes": peak,
         "stats": stats, "launches": launches,
     }
-    log(f"[serve] {name}: {res['n_tokens']} tokens in {res['steps']} decode steps: "
+    log(f"[{tag}] {name}: {res['n_tokens']} tokens in {res['steps']} decode steps: "
         f"{res['tokens_per_s']:.2f} tok/s, {res['ms_per_step']:.3f} ms/step, "
         f"prefill of {requests} prompts {res['prefill_s']:.3f} s, peak device "
         f"memory {peak / 2**30:.2f} GiB")
-    log(f"[serve] summary {json.dumps(summary)}")
+    log(f"[{tag}] summary {json.dumps(summary)}")
     L, steps = cfg.n_layers, res["steps"]
     moe = any(s.moe is not None for s in cfg.all_specs())
     # an MoE layer routes once a forward: one launch each of the route,
@@ -1718,12 +1741,12 @@ def serve_phase(torch, name, cfg, ecfg):
         fail(f"{name}: serve phase produced malformed tokens")
     kv.pool.check_invariants()
     flush_pairs = kv.flush_pairs.copy()
-    log(f"[serve] {name}: {kv.flushes} flushes, pairs per flush "
-        f"{dict(sorted(flush_pairs.items()))}")
+    log(f"[{tag}] {name}: {kv.flushes} flushes, pairs per flush "
+        f"{dict(sorted(flush_pairs.items()))}, placement {placement}")
     # where a decode step's time goes: 8 traced steps of a fresh batch
     prof = profile_decode(res["engine"], cfg.vocab, requests, prompt_len, 8,
-                          str(ROOT / "build" / "profile" / name))
-    log(f"[serve] {name} profile {json.dumps(prof)}")
+                          str(ROOT / "build" / "profile" / f"{name}_{tag}"))
+    log(f"[{tag}] {name} profile {json.dumps(prof)}")
     del res, params, kv
     gc.collect()
     torch.cuda.empty_cache()
@@ -1838,8 +1861,8 @@ def reference_phase(torch, cfg, ecfg, params, name="tinyllama-1.1b", requests=2,
     recorded = []  # (step, logits row) per reference decode, in lane order
     plain_logits = ServingEngine._logits
 
-    def recording(self, x):
-        out = plain_logits(self, x)
+    def recording(self, x, dtype=None):
+        out = plain_logits(self, x, dtype)
         recorded.append((self.steps, out[0, -1].detach().clone()))
         return out
 
@@ -1914,11 +1937,12 @@ def reference_phase(torch, cfg, ecfg, params, name="tinyllama-1.1b", requests=2,
     return launches_by_path
 
 
-def smoke_lifecycle(torch, arch, qos=False, **overrides):
+def smoke_lifecycle(torch, arch, qos=False, dtype=None, **overrides):
     """The smoke config's scripted lifecycle on cuda and on cpu: every
     observable field must be equal.  ``overrides`` change the engine
     config (``data_plane``, ``policy``); ``qos`` runs the two-tenant QoS
-    lifecycle instead, which must shed a batch request on both devices."""
+    lifecycle instead, which must shed a batch request on both devices;
+    ``dtype``: the weights' type (default float32)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import TppConfig
     from repro_torch.launch.serve import lifecycle_trace, qos_lifecycle_trace
@@ -1927,7 +1951,8 @@ def smoke_lifecycle(torch, arch, qos=False, **overrides):
     from repro_torch.serving import EngineConfig, ServingEngine
 
     scfg = get_smoke_config(arch)
-    sparams = init_params(scfg, torch.Generator().manual_seed(0), device="cpu")
+    sparams = init_params(scfg, torch.Generator().manual_seed(0), device="cpu",
+                          dtype=dtype or torch.float32)
     if qos:
         secfg = EngineConfig(page_size=4, num_fast=8, num_slow=64, topk_pages=None,
                              tpp=TppConfig(demote_budget=4, promote_budget=2),
@@ -1939,18 +1964,27 @@ def smoke_lifecycle(torch, arch, qos=False, **overrides):
                              tpp=TppConfig(demote_budget=16, promote_budget=8),
                              **overrides)
         trace_fn, label = lifecycle_trace, f"{secfg.policy}/{secfg.data_plane}"
-    traces, checks = {}, {}
+    if dtype is not None and dtype != torch.float32:
+        label += f"/{str(dtype).replace('torch.', '')}"
+    traces, checks, rows = {}, {}, {}
     devices = ("cuda", "cpu")
     for dev in devices:
         p = sparams if dev == "cpu" else tree_map(lambda t: t.to("cuda"), sparams)
         eng = ServingEngine(scfg, p, secfg, device=dev)
-        traces[dev] = trace_fn(eng, scfg.vocab)
+        with logit_rows(torch, eng) as rows[dev]:
+            traces[dev] = trace_fn(eng, scfg.vocab)
         san = eng.kv.pool.tiersan
         if san is None or san.level != "full" or not eng.kv.plan_check:
             fail(f"{arch} {label} smoke lifecycle on {dev} ran without TierSan "
                  "and the plan check")
         checks[dev] = (san.checks, eng.kv.flushes)
     card, host = (traces[d] for d in devices)
+    split = near_tie_split(torch, card, host, rows["cpu"], secfg.data_plane) \
+        if dtype not in (None, torch.float32) else None
+    if split is not None:  # a bfloat16 near tie: equal up to it, nothing after
+        log(f"[serve] {arch} {label} smoke lifecycle cuda == cpu up to a bfloat16 "
+            f"near tie: {json.dumps(split)}")
+        return split
     for field in host:
         a, b = card[field], host[field]
         if a != b:
@@ -1977,6 +2011,54 @@ def smoke_lifecycle(torch, arch, qos=False, **overrides):
         f"TierSan checks {checks['cuda'][0]}, flushes checked {checks['cuda'][1]}"
         + (f", batch shed at steps {card['shed_at_steps']}, qos "
            f"{json.dumps(card['stats'][-1]['qos'])}" if qos else ""))
+    return None
+
+
+@contextlib.contextmanager
+def logit_rows(torch, eng):
+    """The last-position logits of every row of every ``_logits`` call of
+    ``eng`` while the block runs (float32, on the CPU), in call order."""
+    rows, plain = [], eng._logits
+
+    def recording(x, dtype=None):
+        lg = plain(x, dtype)
+        rows.extend(lg[:, -1].float().cpu().unbind(0))
+        return lg
+
+    eng._logits = recording
+    try:
+        yield rows
+    finally:
+        eng._logits = plain
+
+
+def near_tie_split(torch, card, host, host_rows, plane):
+    """Where the card's and the host's bfloat16 lifecycles first part:
+    ``None`` if their tokens never do; else the step, the request and
+    both tokens, if the host's logits of the two tokens there lie within
+    one bfloat16 ulp of the larger (the card's products round in another
+    order, so either may win a tie); else fail.  The reference plane
+    takes one ``_logits`` row a request a step, the batched plane one a
+    lane, its active requests first and in the same order."""
+    from repro_torch.serving.kv_cache import bucket
+
+    row = 0
+    for step, (a, b) in enumerate(zip(card["tokens"], host["tokens"])):
+        for i, rid in enumerate(b):
+            if a.get(rid) != b[rid]:
+                lg = host_rows[row + i]
+                hi, lo = float(lg[b[rid]]), float(lg[a[rid]])
+                ulp = 2.0 ** (math.floor(math.log2(abs(hi))) - 7) if hi else 0.0
+                split = {"step": step, "request": rid, "cpu_token": b[rid],
+                         "cuda_token": a[rid], "cpu_logits": [hi, lo], "ulp": ulp}
+                if a.keys() != b.keys() or not 0.0 <= hi - lo <= ulp:
+                    fail(f"smoke lifecycle cuda != cpu off a bfloat16 near tie: {split}")
+                return split
+        if plane == "reference":
+            row += len(b)
+        else:  # one row a padded lane
+            row += bucket(len(b))
+    return None
 
 
 @contextlib.contextmanager
@@ -3328,9 +3410,10 @@ def greedy_decode_run(torch, cfg, params, smi, fails, tag="decode"):
     return launches
 
 
-def fwd_vs_decode_run(torch, cfg, params, fails, tag="decode"):
+def fwd_vs_decode_run(torch, cfg, params, fails, tag="decode", rel=None):
     """The forward over the prompts against ``prompt_len`` teacher-forced
-    ``decode_step``s, held to ``FWD_DECODE_REL`` and ``NEAR_TIE``; an MoE
+    ``decode_step``s, held to ``FWD_DECODE_REL`` and ``NEAR_TIE`` (or, with
+    ``rel``, both to ``rel`` of the largest logit: bfloat16); an MoE
     config runs its drop-free variant (capacity factor E / k: every
     expert takes every row, C >= T in the forward and at decode).
     Returns the launch counts of the forward and the steps."""
@@ -3363,20 +3446,23 @@ def fwd_vs_decode_run(torch, cfg, params, fails, tag="decode"):
     launches = ops.launch_counts()
     check_train_launches(f"fwd vs decode {cfg.name}", launches,
                          expected_train_launches(moe_layer_count(cfg), P + 1, 0), fails)
+    full, dec = full.float(), dec.float()
     scale = full.abs().max().item()
     err = (full - dec).abs().max().item()
+    tol_rel = FWD_DECODE_REL if rel is None else rel
+    near_tie = NEAR_TIE if rel is None else rel * scale
     top2 = full.topk(2, dim=-1).values
     gap = (top2[..., 0] - top2[..., 1])
     differ = full.argmax(-1) != dec.argmax(-1)
     gaps = gap[differ].tolist()
     res = {"capacity_factor": factor, "capacity": caps,
            "max_abs_err": err, "max_abs_logit": scale, "rel_err": err / scale,
-           "tolerance_rel": FWD_DECODE_REL, "argmax_differ": len(gaps),
-           "top2_gaps_where_argmax_differs": gaps, "near_tie": NEAR_TIE,
+           "tolerance_rel": tol_rel, "argmax_differ": len(gaps),
+           "top2_gaps_where_argmax_differs": gaps, "near_tie": near_tie,
            "finite": bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
            "launches": launches}
-    if not (res["finite"] and err <= FWD_DECODE_REL * scale
-            and all(g < NEAR_TIE for g in gaps)):
+    if not (res["finite"] and err <= tol_rel * scale
+            and all(g < near_tie for g in gaps)):
         fails.append(f"fwd vs decode {cfg.name}: {res}")
     label = "drop-free forward" if mcfg is not None else "forward"
     log(f"[{tag}] {cfg.name} {label} vs decode {json.dumps(res)}")
@@ -3490,12 +3576,16 @@ def decode_smoke_run(torch, arch, steps, batch, fails, tag="decode"):
     return launches
 
 
-def train_loop_run(torch, cfg, smi, fails, steps, remat=False, active=None, tag="train"):
+def train_loop_run(torch, cfg, smi, fails, steps, remat=False, active=None, tag="train",
+                   dtype=None, profile=False, losses=None):
     """``steps`` steps of ``train_loop`` on ``cfg`` at ``TRAIN_DATA`` (B=8,
     S=256), AdamW defaults, warmup ``TRAIN_WARMUP``: finite losses, none
     skipped, the MoE launches exact (remat runs each forward twice).
     ``active``: the parameters a token meets (default all of them), for
-    the float32 share ``6·active·tokens / time``.  Returns the counts."""
+    the float32 share ``6·active·tokens / time``.  ``dtype``: the
+    weights' type (default float32); ``profile``: then 2 traced steps of
+    ``make_train_step`` from fresh weights (busy and idle); ``losses``, a
+    list, receives the losses.  Returns the counts."""
     import statistics
 
     from repro_torch import optim
@@ -3508,13 +3598,16 @@ def train_loop_run(torch, cfg, smi, fails, steps, remat=False, active=None, tag=
     active = n_params if active is None else active
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    dtype = dtype or torch.float32
     rep = train_loop(cfg, DataConfig(**TRAIN_DATA), optim.AdamWConfig(), steps=steps,
-                     warmup=TRAIN_WARMUP, remat=remat, log_every=0, device="cuda")
+                     warmup=TRAIN_WARMUP, remat=remat, dtype=dtype, log_every=0,
+                     device="cuda")
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_DATA["seq_len"] * TRAIN_DATA["global_batch"]
     med = statistics.median(rep.step_seconds)
-    res = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+    res = {"arch": cfg.name, "dtype": str(dtype).replace("torch.", ""),
+           "layers": cfg.n_layers, "params": n_params,
            "active_params": active, "batch": TRAIN_DATA, "remat": remat,
            "steps": rep.steps_run, "losses": rep.losses, "step_seconds": rep.step_seconds,
            "median_ms_per_step": med * 1e3, "tokens_per_s": tokens / med,
@@ -3522,10 +3615,28 @@ def train_loop_run(torch, cfg, smi, fails, steps, remat=False, active=None, tag=
            "peak_device_memory_GiB": peak / 2**30, "skipped": rep.skipped,
            "launches": launches, "card": smi}
     log(f"[{tag}] {cfg.name} {json.dumps(res)}")
+    if losses is not None:
+        losses.extend(rep.losses)
     if rep.skipped or not all(math.isfinite(v) for v in rep.losses):
         fails.append(f"train {cfg.name}: losses {rep.losses}, skipped {rep.skipped}")
     check_train_launches(f"train {cfg.name}", launches, expected_train_launches(
         moe_layer_count(cfg), steps * (2 if remat else 1), steps), fails)
+    if profile:
+        from repro_torch.data import make_batches
+        from repro_torch.launch.train import make_train_step, profile_train_steps
+        from repro_torch.models.model import init_params
+
+        oc = optim.AdamWConfig()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda", dtype=dtype)
+        opt = optim.init(params, oc)
+        step_fn = make_train_step(cfg, oc, optim.cosine_schedule(TRAIN_WARMUP, steps),
+                                  remat=remat, donate=True)
+        prof = profile_train_steps(step_fn, params, opt,
+                                   make_batches(DataConfig(**TRAIN_DATA), cfg), "cuda",
+                                   str(ROOT / "build" / "profile" / f"{tag}_{cfg.name}"))
+        log(f"[{tag}] {cfg.name} profile_2_steps {json.dumps(prof)}")
+        del params, opt
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -3780,6 +3891,260 @@ def ssm_phase(torch, smi):
     for plane in ("batched", "reference"):
         launches[f"ssm/shared-block lifecycle, {plane}"] = shared_lifecycle(torch, plane)
     log(f"[ssm] phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# [bf16]: bfloat16 weights on the card
+# --------------------------------------------------------------------- #
+# forward against decode, of the largest logit.  In bfloat16 a token
+# whose router probabilities nearly tie can take other experts in the
+# forward and in decode_step: at deepseek-v2-lite's smoke size, over 64
+# positions, the JAX package's own forward and decode part by 0.245 of
+# it, the port's by 0.377 at this script's prompts (token 21 of lane 1:
+# its 2nd and 3rd experts' probabilities 2.7e-6 apart swap), where the
+# positions whose experts agree part by at most 0.012, and float32 by
+# 1e-6.  So the bound is half the largest logit: it catches a broken
+# path, not a flipped route (ROADMAP.md Queue 3).
+BF16_FWD_DECODE_REL = 0.5
+BF16_ROUTE_T = (16384 + 64, 32768)  # past the 16,384 tokens the route's last block stages
+BF16_TRAIN_STEPS = 3
+# name: (T, d, E, k, C) of the glue kernels' bfloat16 checks; tokens drop
+BF16_GLUE = {"phi3.5-moe decode T=8": (8, 4096, 16, 2, 1),
+             "phi3.5-moe prefill T=47": (47, 4096, 16, 2, 7),
+             "phi3.5-moe train T=2048": (2048, 4096, 16, 2, 320),
+             "deepseek-v2-lite decode T=2": (2, 2048, 64, 6, 1),
+             "deepseek-v2-lite T=4096": (4096, 2048, 64, 6, 480),
+             "d=4094 (element path)": (8, 4094, 16, 2, 1)}
+
+
+def bf16_glue(torch, gen, flush, fails):
+    """``moe_dispatch``, ``moe_combine`` (also with ``round_each``, the
+    dispatch's backward) and ``moe_combine_bwd`` on bfloat16 rows against
+    their plain versions at ``BF16_GLUE``: bit for bit (``torch.equal``),
+    ``dvals`` within ``DVALS_REL``; timed at phi3.5-moe's decode (the
+    dispatch and combine) and training (the backward) shapes, beside the
+    bytes bound (the rows' bytes halve) → ``{kernel: bfloat16 entry}``."""
+    from repro_torch.kernels import moe_dispatch as md
+
+    out, cases = {}, {}
+    for name, (T, d, E, k, C) in BF16_GLUE.items():
+        x, w, r = biased_route(torch, gen, T, d, E, k, C)
+        x = x.bfloat16()
+        ye = torch.randn((E, C, d), generator=gen, device="cuda").bfloat16()
+        dy = (torch.randn((T, d), generator=gen, device="cuda") * 1e-3).bfloat16()
+        ones = torch.ones_like(r.vals)
+        dye, dvals = md.moe_combine_bwd(dy, ye, r.slot, r.vals)
+        want_dye, want_dvals = md.moe_combine_bwd_plain(dy, ye, r.slot, r.vals)
+        err = (dvals - want_dvals).abs().max().item()
+        tol = DVALS_REL * max(1.0, want_dvals.abs().max().item())
+        res = {
+            "dropped": int((r.slot == E * C).sum()),
+            "dispatch": torch.equal(md.moe_dispatch(x, r.src, E, C),
+                                    md.moe_dispatch_plain(x, r.src, E, C)),
+            "combine": torch.equal(md.moe_combine(ye, r.slot, r.vals),
+                                   md.moe_combine_plain(ye, r.slot, r.vals)),
+            "dispatch_backward": torch.equal(
+                md.moe_combine(ye, r.slot, ones, round_each=True),
+                md.moe_combine_plain(ye, r.slot, ones, round_each=True)),
+            "combine_bwd_dye": torch.equal(dye, want_dye),
+            "combine_bwd_dvals_max_abs_err": err, "dvals_tolerance": tol}
+        out[name] = res
+        if not (all(v for v in res.values() if isinstance(v, bool)) and err <= tol
+                and (res["dropped"] > 0 or T * k <= E * C) and dye.dtype == torch.bfloat16):
+            fails.append(f"bfloat16 MoE glue {name}: {res}")
+        cases[name] = (x, r, ye, dy)
+    log(f"[bf16] moe glue checks {json.dumps(out)}")
+
+    def glue_row(name):
+        x, r, ye, _ = cases[name]
+        T, d = x.shape
+        E, C, _ = ye.shape
+        k = r.vals.shape[1]
+        kept = int((r.src >= 0).sum())
+        rows = int(torch.unique(r.src[r.src >= 0]).numel())
+        d_bytes = 2 * (rows * d + E * C * d) + 4 * E * C
+        c_bytes = 2 * (kept * d + T * d) + 8 * T * k
+        db = bound(d_bytes, 0.0)
+        cb = bound(c_bytes, 2.0 * T * k * d)
+        return {
+            "moe_dispatch": dict(
+                shape=f"{name}: x ({T}, {d}) bf16, E={E}, C={C}",
+                kernel_ms=time_ms(torch, lambda: md.moe_dispatch(x, r.src, E, C), flush),
+                plain_ms=time_ms(torch, lambda: md.moe_dispatch_plain(x, r.src, E, C), flush),
+                library_ms=None, bound_ms=db[0], bound_by=db[1], bound_bytes=d_bytes),
+            "moe_combine": dict(
+                shape=f"{name}: ye ({E}, {C}, {d}) bf16, k={k}",
+                kernel_ms=time_ms(torch, lambda: md.moe_combine(ye, r.slot, r.vals), flush),
+                plain_ms=time_ms(torch, lambda: md.moe_combine_plain(ye, r.slot, r.vals),
+                                 flush),
+                library_ms=None, bound_ms=cb[0], bound_by=cb[1], bound_bytes=c_bytes)}
+
+    entries = glue_row("phi3.5-moe decode T=8")
+    deep = glue_row("deepseek-v2-lite T=4096")
+    x, r, ye, dy = cases["phi3.5-moe train T=2048"]
+    T, d = x.shape
+    E, C, _ = ye.shape
+    k = r.vals.shape[1]
+    kept = int((r.slot < E * C).sum())
+    nbytes = 2 * (T * d + kept * d + E * C * d) + 4 * (2 * T * k + T * k)
+    bb = bound(nbytes, 3.0 * kept * d)
+    entries["moe_combine_bwd"] = dict(
+        shape=f"phi3.5-moe train: dy ({T}, {d}) bf16, E={E}, C={C}, k={k}",
+        kernel_ms=time_ms(torch, lambda: md.moe_combine_bwd(dy, ye, r.slot, r.vals), flush),
+        plain_ms=time_ms(torch, lambda: md.moe_combine_bwd_plain(dy, ye, r.slot, r.vals),
+                         flush),
+        library_ms=None, bound_ms=bb[0], bound_by=bb[1], bound_bytes=nbytes)
+    worst = max(v["combine_bwd_dvals_max_abs_err"] for v in out.values())
+    for kname, e in entries.items():
+        e["max_abs_err"] = worst if kname == "moe_combine_bwd" else 0.0
+        e["tolerance"] = DVALS_REL if kname == "moe_combine_bwd" else 0.0
+        e["checks"] = len(out)
+        if kname in deep:
+            e["deepseek_v2_lite_T4096"] = deep[kname]
+    del cases
+    return entries
+
+
+def bf16_attention(torch, gen, flush, fails):
+    """``paged_attention`` with a bfloat16 q over the engine's float32
+    store (phi3.5-moe's serve decode: B=8, H=32, Hkv=8, D=128, P=16, 8
+    pages a lane) against its plain version, and timed → its entry."""
+    from repro_torch.kernels import ops
+
+    B, H, Hkv, P, MP, D, F, L = 8, 32, 8, 16, 8, 128, 89, 2
+    case = attn_case(torch, gen, B, H, Hkv, P, MP, D, F, L, torch.float32, None, 1)
+    case["q"] = case["q"].bfloat16()
+    got = ops.paged_attention(**case, impl="kernel")
+    want = ops.paged_attention(**case, impl="ref")
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL["bfloat16"]
+    if not (got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+            and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)):
+        fails.append(f"paged_attention bfloat16 q over float32 pages: max_abs_err {err}")
+    nbytes, flops = attn_work(torch, case)
+    nbytes -= 2 * B * H * D * 2  # q and out are 2 bytes an element, not the store's 4
+    bb = bound(nbytes, flops)
+    return dict(shape=f"q ({B}, {H}, {D}) bf16 over ({F}, {Hkv}, {P}, {D}) float32 pages, "
+                      f"{MP} a lane, 1 pad lane", max_abs_err=err, tolerance=tol,
+                kernel_ms=time_ms(torch, lambda: ops.paged_attention(**case, impl="kernel"),
+                                  flush),
+                plain_ms=time_ms(torch, lambda: ops.paged_attention(**case, impl="ref"), flush),
+                library_ms=None, bound_ms=bb[0], bound_by=bb[1], bound_bytes=nbytes)
+
+
+def bf16_routes(torch, gen, flush, fails):
+    """``moe_route`` at deepseek-v2-lite's router, (T, 2048) @ (2048, 64),
+    k = 6, for each T of ``BF16_ROUTE_T`` (past the 16,384 tokens whose
+    tile counts its last block stages) against the plain routing on the
+    kernel's own logits (``check_route_case``); the largest timed."""
+    out = {}
+    for T in BF16_ROUTE_T:
+        x = torch.randn((T, 2048), generator=gen, device="cuda")
+        w = torch.randn((2048, 64), generator=gen, device="cuda") * 0.02
+        C = max(1, int(1.25 * T * 6 / 64))
+        res, ok, glue = check_route_case(torch, gen, f"deepseek-v2-lite T={T}", x, w, 6, C)
+        if not (ok and all(glue.values())):
+            fails.append(f"moe_route deepseek-v2-lite T={T}: {res}")
+        out[f"T={T}"] = res
+        if T == max(BF16_ROUTE_T):
+            out[f"T={T}"].update(route_times(torch, flush, x, w, 6, C))
+        del x, w
+    log(f"[bf16] moe_route past the staged tile counts {json.dumps(out)}")
+    return out
+
+
+def bf16_phase(torch, smi, rows, moe_full):
+    """The [bf16] phase: the kernels' bfloat16 cases (added to ``rows``)
+    and the route at T = 32,768; phi3.5-moe cut to ``MOE_LAYERS`` layers
+    served in bfloat16 through the engine (placement held to
+    ``PLACEMENT``); deepseek-v2-lite's 27 layers through ``decode_step``
+    in bfloat16 (greedy, the drop-free forward against decode within
+    ``BF16_FWD_DECODE_REL``); phi3.5-moe cut to 2 layers through
+    ``train_loop(dtype=bfloat16)``; the seven served archs' smoke
+    lifecycles in bfloat16, cuda == cpu on both planes.  Returns each
+    run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_bytes
+    from repro_torch.serving import EngineConfig
+    from repro_torch.core import TppConfig
+
+    t0 = time.perf_counter()
+    fails: list = []
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    flush = torch.ones(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    glue = bf16_glue(torch, gen, flush, fails)
+    attn = bf16_attention(torch, gen, flush, fails)
+    routes = bf16_routes(torch, gen, flush, fails)
+    del flush
+    by = {r["name"]: r for r in rows}
+    by["paged_attention"]["bfloat16_q_float32_store"] = attn
+    for kname, e in glue.items():
+        by[kname]["bfloat16"] = e
+    by["moe_route"]["deepseek_v2_lite_past_staged_tiles"] = routes
+    log(f"[bf16] kernels {json.dumps({'paged_attention': attn, **glue})}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fails:
+        fail("; ".join(fails))
+    log(f"[bf16] kernels in {time.perf_counter() - t0:.1f} s")
+
+    launches = {}
+    bf = torch.bfloat16
+    # phi3.5-moe served in bfloat16 (the serve setting of phase 3)
+    moe_cfg = dataclasses.replace(moe_full, stacks=((moe_full.stacks[0][0], MOE_LAYERS),))
+    ecfg = EngineConfig(page_size=16, num_fast=24, num_slow=64, topk_pages=4,
+                        max_seqs=8, tpp=TppConfig(demote_budget=64, promote_budget=32))
+    log(f"[bf16] {MOE_ARCH}: {MOE_LAYERS} of {moe_full.n_layers} layers, "
+        f"{param_bytes(moe_cfg) / 2 / 1e9:.1f} GB of bfloat16 weights")
+    launches[f"bf16 serve/{MOE_ARCH}"], _ = serve_phase(torch, MOE_ARCH, moe_cfg, ecfg,
+                                                        dtype=bf, tag="bf16")
+    # deepseek-v2-lite, all 27 layers, through decode_step
+    cfg = get_config(DEEPSEEK)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                         dtype=bf)
+    torch.cuda.synchronize()
+    log(f"[bf16] {DEEPSEEK} full width: {cfg.n_layers} layers, "
+        f"{param_bytes(cfg) / 2 / 1e9:.1f} GB of bfloat16 weights, built in "
+        f"{time.perf_counter() - t1:.1f} s")
+    launches[f"bf16 decode/{DEEPSEEK}"] = greedy_decode_run(torch, cfg, params, smi, fails,
+                                                           tag="bf16")
+    launches[f"bf16 decode/{DEEPSEEK} drop-free fwd vs decode"] = fwd_vs_decode_run(
+        torch, cfg, params, fails, tag="bf16", rel=BF16_FWD_DECODE_REL)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fails:
+        fail("; ".join(fails))
+    # phi3.5-moe trained in bfloat16 (moe_combine_bwd on bfloat16 rows),
+    # then the same steps in float32, the losses side by side
+    train_cfg = dataclasses.replace(moe_full, stacks=((moe_full.stacks[0][0],
+                                                       TRAIN_MOE_LAYERS),))
+    losses = {}
+    for dt in (bf, torch.float32):
+        name = str(dt).replace("torch.", "")
+        launches[f"bf16 train/{MOE_ARCH} ({TRAIN_MOE_LAYERS} layers, {name})"] = \
+            train_loop_run(torch, train_cfg, smi, fails, BF16_TRAIN_STEPS, tag="bf16",
+                           dtype=dt, profile=dt == bf, losses=losses.setdefault(name, []))
+    log(f"[bf16] {MOE_ARCH} train_loop losses by dtype {json.dumps(losses)}")
+    if fails:
+        fail("; ".join(fails))
+    # the seven served archs' smoke lifecycles in bfloat16, cuda == cpu
+    os.environ["TIERSAN_LEVEL"] = "full"
+    os.environ["TIERSAN_PLAN_CHECK"] = "1"
+    splits = {}
+    for plane in ("batched", "reference"):
+        for arch in ("tinyllama-1.1b", MOE_ARCH) + FAMILIES:
+            split = smoke_lifecycle(torch, arch, dtype=bf, data_plane=plane)
+            if split is not None:
+                splits[f"{arch}/{plane}"] = split
+    del os.environ["TIERSAN_LEVEL"], os.environ["TIERSAN_PLAN_CHECK"]
+    log(f"[bf16] smoke lifecycles cuda == cpu: {14 - len(splits)} of 14 whole, "
+        f"{len(splits)} up to a bfloat16 near tie {json.dumps(splits)}")
+    log(f"[bf16] phase took {time.perf_counter() - t0:.1f} s")
     return launches
 
 

@@ -17,6 +17,20 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
+# the module names, in the order of ``repro/configs/__init__.py``
+ARCHS: List[str] = [
+    "chatglm3_6b",
+    "phi3_medium_14b",
+    "gemma3_4b",
+    "tinyllama_1_1b",
+    "xlstm_350m",
+    "musicgen_medium",
+    "zamba2_2_7b",
+    "phi3_5_moe_42b",
+    "deepseek_v2_lite_16b",
+    "qwen2_vl_2b",
+]
+
 ALIASES: Dict[str, str] = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "gemma3-4b": "gemma3_4b",

@@ -9,20 +9,35 @@
 //   into zeros (xe.at[slot].add) value for value.
 // moe_combine: y[t] = sum over j in ascending order of
 //   vals[t, j] * ye[slot[t * k + j]], a dropped assignment (slot E * C)
-//   contributing a zero row.  Products and sums are rounded one by one
-//   (no fused multiply-add), as the plain version's multiply and adds.
+//   contributing a zero row.  Products and sums are float32, rounded one
+//   by one (no fused multiply-add), as the plain version's multiply and
+//   adds, and the sum is rounded once to ye's type; each gate is first
+//   rounded to ye's type.  In bfloat16 that is
+//   bf16(sum_j f32(ye_j) * f32(bf16(g_j))), JAX's jitted lines
+//   (repro/models/moe.py:134-135) bit for bit.  With round_each, each
+//   partial sum is rounded to ye's type too: the dispatch's backward in
+//   bfloat16, where XLA transposes the repeat of repro/models/moe.py:123
+//   into a bfloat16 sum over the k gates, rounded after each add.
 // moe_combine_bwd: the gradient of moe_combine (JAX differentiates the
 //   gather and gated sum of repro/models/moe.py:133-135 in XLA; no TPU
-//   kernel).  dye[slot[t * k + j]] = vals[t, j] * dy[t], one rounding, as
-//   the plain version; each kept slot is filled by exactly one assignment,
+//   kernel).  dye[slot[t * k + j]] = vals[t, j] * dy[t], the gate first
+//   rounded to dy's type, then one rounding, as the plain version; each kept slot is filled by exactly one assignment,
 //   so no atomics; slots no token fills are 0 (a memset first).
-//   dvals[t, j] = <ye[slot[t * k + j]], dy[t]>, 0 for a dropped assignment.
+//   dvals[t, j] = <ye[slot[t * k + j]], dy[t]>, float32 products and
+//   sums in any element type, 0 for a dropped assignment.
 //   One block per token: its threads split d in 16-byte vectors, keep one
 //   partial dot a gate in registers, and reduce the k of them at once
 //   (warp shuffles, then one pass through shared memory) in a fixed order,
 //   so the result is the same from run to run.  The backward of
 //   moe_dispatch is moe_combine with unit gates (dx[t] = sum over j of
-//   dxe[slot[t * k + j]]), so it needs no kernel of its own.
+//   dxe[slot[t * k + j]]) and round_each, so it needs no kernel of its
+//   own.
+//
+// Element types: float32 and bfloat16 (x, ye, dy and the outputs share
+// it; gates, dvals and every sum are float32).  A 16-byte vector holds 4
+// floats or 8 bfloat16: the dispatch copies it as it is, the combine and
+// its backward hold it in registers as it is (4 words either way) and
+// widen it to floats only for the arithmetic.
 //
 // What bounds them.  Both move bytes and do (almost) no arithmetic.  At
 // decode (phi3.5-moe: T = 8, d = 4096, 16 slots; deepseek-v2-lite: T = 2
@@ -33,7 +48,8 @@
 // stream 235-285 MB and HBM's rate sets the time.  The design:
 //
 // 1. Indices staged once.  A block covers a tile of rows (tokens for the
-//    combine, slots for the dispatch) × 16-byte column vectors.  Its
+//    combine, slots for the dispatch) × 16-byte column vectors (4
+//    floats or 8 bfloat16: the plans count vectors of either).  Its
 //    threads load the tile's slot and gate (or src) entries in one
 //    coalesced pass into shared memory; after one __syncthreads() no
 //    thread reads an index from global memory again, where each of a
@@ -51,8 +67,8 @@
 //    (glue_plan in moe_dispatch.py): a block takes the power of two of
 //    threads (32-256) nearest below two blocks an SM, so a decode call
 //    spreads over tens to hundreds of SMs.
-//    d % 4 != 0 or a pointer off 16 bytes takes the element path with
-//    the same staging and plan.
+//    d not a multiple of a vector's elements, or a pointer off 16 bytes,
+//    takes the element path with the same staging and plan.
 // 3. Programmatic dependent launch.  Both launch through
 //    cudaLaunchKernelEx with programmatic stream serialization, so the
 //    card may schedule their blocks while the previous kernel in the
@@ -73,6 +89,8 @@
 // of ye and writes all of dye; the memset writes every slot once more,
 // which a kernel that zeroes only the empty slots (it would need the
 // route's src) would save.  It launches with <<<>>>.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -88,38 +106,100 @@ __device__ __forceinline__ void wait_for_previous_kernel() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// N = 4 floats (16 bytes, aligned) or 1 float, cached in L2 only.
-template <int N>
-__device__ __forceinline__ void load_cg(const float* p, float (&x)[N]) {
-  if constexpr (N == 4) {
-    const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
+// One "vector" of the kernels below: 16 bytes (kVec) or one element,
+// kept as it is in memory.  Raw<T, kVec>::N elements of type T.
+template <typename T, bool kVec>
+struct Raw {
+  using type = typename std::conditional<kVec, uint4, T>::type;
+  static constexpr int N = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
+};
+
+template <typename V>
+__device__ __forceinline__ V ldcg(const V* p) {
+  return __ldcg(p);
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 ldcg<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const unsigned short u = __ldcg(reinterpret_cast<const unsigned short*>(p));
+  return __ushort_as_bfloat16(u);
+}
+
+template <typename V>
+__device__ __forceinline__ V zero_vec();
+
+template <>
+__device__ __forceinline__ uint4 zero_vec<uint4>() {
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <>
+__device__ __forceinline__ float zero_vec<float>() {
+  return 0.f;
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_vec<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
+}
+
+// The N elements of a raw vector as floats, and back (rounded to T).
+template <typename T, bool kVec>
+__device__ __forceinline__ void widen(const typename Raw<T, kVec>::type& v,
+                                      float (&x)[Raw<T, kVec>::N]) {
+  if constexpr (!kVec) {
+    x[0] = to_float<T>(v);
+  } else if constexpr (sizeof(T) == 4) {
+    x[0] = __uint_as_float(v.x);
+    x[1] = __uint_as_float(v.y);
+    x[2] = __uint_as_float(v.z);
+    x[3] = __uint_as_float(v.w);
   } else {
-    x[0] = __ldcg(p);
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // bf16 is the high half of a float
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
   }
 }
 
-template <int N>
-__device__ __forceinline__ void store_n(float* p, const float (&x)[N]) {
-  if constexpr (N == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+template <typename T, bool kVec>
+__device__ __forceinline__ typename Raw<T, kVec>::type narrow(
+    const float (&x)[Raw<T, kVec>::N]) {
+  if constexpr (!kVec) {
+    return from_float<T>(x[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                      __float_as_uint(x[2]), __float_as_uint(x[3]));
   } else {
-    p[0] = x[0];
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = static_cast<unsigned>(__bfloat16_as_ushort(from_float<T>(x[2 * i]))) |
+             (static_cast<unsigned>(__bfloat16_as_ushort(from_float<T>(x[2 * i + 1])))
+              << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
+}
+
+// x rounded to T and widened again: the identity for float.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float<T>(from_float<T>(x));
 }
 
 // Block (X, Y): Y slots of the tile, X threads across a row's vectors,
 // one vector each.  blockIdx.x: the slot tile, blockIdx.y: the column
-// chunk.
-template <bool kVec>
+// chunk.  A copy: the vector moves as it is, in any element type.
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    moe_dispatch_kernel(const float* __restrict__ x,
-                        const int32_t* __restrict__ src, float* __restrict__ xe,
+    moe_dispatch_kernel(const T* __restrict__ x,
+                        const int32_t* __restrict__ src, T* __restrict__ xe,
                         int64_t rows, int d) {
-  constexpr int N = kVec ? 4 : 1;
+  using V = typename Raw<T, kVec>::type;
+  constexpr int N = Raw<T, kVec>::N;
   __shared__ int32_t s_src[kThreads];
   const int n = d / N;  // vectors a row
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * blockDim.y;
@@ -131,32 +211,28 @@ __global__ void __launch_bounds__(kThreads)
   const int c = blockIdx.y * blockDim.x + threadIdx.x;
   if (static_cast<int>(threadIdx.y) >= here || c >= n) return;
   const int t = s_src[threadIdx.y];
-  float v[N];
-  if (t >= 0) {
-    load_cg<N>(x + static_cast<int64_t>(t) * d + static_cast<int64_t>(c) * N, v);
-  } else {
-#pragma unroll
-    for (int q = 0; q < N; ++q) v[q] = 0.f;
-  }
-  store_n<N>(xe + (r0 + threadIdx.y) * d + static_cast<int64_t>(c) * N, v);
+  const V v = t >= 0 ? ldcg(reinterpret_cast<const V*>(x + static_cast<int64_t>(t) * d) + c)
+                     : zero_vec<V>();
+  reinterpret_cast<V*>(xe + (r0 + threadIdx.y) * d)[c] = v;
 }
 
 // Block (X, Y) as the dispatch's, over Y tokens; each thread takes kVPT
 // vectors, X apart, and holds the rows of kG gates at once (kG * kVPT =
-// 8 vectors, 32 registers).  Dynamic shared memory holds the tile's
-// Y * k slots, then its Y * k gates.
-template <bool kVec, int kG, int kVPT>
+// 8 vectors, 32 registers in either type).  Dynamic shared memory holds
+// the tile's Y * k slots, then its Y * k gates.
+template <typename T, bool kVec, int kG, int kVPT>
 __global__ void __launch_bounds__(kThreads)
-    moe_combine_kernel(const float* __restrict__ ye,
+    moe_combine_kernel(const T* __restrict__ ye,
                        const int32_t* __restrict__ slot,
-                       const float* __restrict__ vals, float* __restrict__ y,
-                       int T, int d, int k, int drop) {
-  constexpr int N = kVec ? 4 : 1;
+                       const float* __restrict__ vals, T* __restrict__ y,
+                       int T_, int d, int k, int drop, int round_each) {
+  using V = typename Raw<T, kVec>::type;
+  constexpr int N = Raw<T, kVec>::N;
   extern __shared__ int32_t stage[];
   const int n = d / N;
   const int Y = blockDim.y;
   const int t0 = blockIdx.x * Y;
-  const int tokens = min(Y, T - t0);
+  const int tokens = min(Y, T_ - t0);
   int32_t* s_slot = stage;
   float* s_val = reinterpret_cast<float*>(stage + Y * k);
   wait_for_previous_kernel();
@@ -175,7 +251,7 @@ __global__ void __launch_bounds__(kThreads)
   float acc[kVPT][N];
   for (int j0 = 0; j0 < k; j0 += kG) {
     const int g = min(kG, k - j0);
-    float v[kG][kVPT][N];
+    V v[kG][kVPT];
 #pragma unroll
     for (int j = 0; j < kG; ++j) {  // the group's rows, all in flight
       if (j < g) {
@@ -183,26 +259,26 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int u = 0; u < kVPT; ++u) {
           const int c = c0 + u * blockDim.x;
-          if (s != drop && c < n) {
-            load_cg<N>(ye + static_cast<int64_t>(s) * d + static_cast<int64_t>(c) * N,
-                       v[j][u]);
-          } else {
-#pragma unroll
-            for (int q = 0; q < N; ++q) v[j][u][q] = 0.f;
-          }
+          v[j][u] = s != drop && c < n
+                        ? ldcg(reinterpret_cast<const V*>(ye + static_cast<int64_t>(s) * d) + c)
+                        : zero_vec<V>();
         }
       }
     }
 #pragma unroll
     for (int j = 0; j < kG; ++j) {  // then the rounding, ascending j
       if (j < g) {
-        const float gate = tg[j0 + j];
+        const float gate = round_to<T>(tg[j0 + j]);
 #pragma unroll
         for (int u = 0; u < kVPT; ++u) {
+          float x[N];
+          widen<T, kVec>(v[j][u], x);
 #pragma unroll
           for (int q = 0; q < N; ++q) {
-            const float p = __fmul_rn(v[j][u][q], gate);
-            acc[u][q] = j0 + j == 0 ? p : __fadd_rn(acc[u][q], p);
+            const float p = __fmul_rn(x[q], gate);
+            float a = j0 + j == 0 ? p : __fadd_rn(acc[u][q], p);
+            if (round_each) a = round_to<T>(a);
+            acc[u][q] = a;
           }
         }
       }
@@ -212,25 +288,27 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int u = 0; u < kVPT; ++u) {
     const int c = c0 + u * blockDim.x;
-    if (c < n) store_n<N>(y + row + static_cast<int64_t>(c) * N, acc[u]);
+    if (c < n) reinterpret_cast<V*>(y + row)[c] = narrow<T, kVec>(acc[u]);
   }
 }
 
 constexpr int kMaxK = 8;
 constexpr int kMaxWarps = kThreads / 32;
 
-template <bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    moe_combine_bwd_kernel(const float* __restrict__ dy,
-                           const float* __restrict__ ye,
+    moe_combine_bwd_kernel(const T* __restrict__ dy,
+                           const T* __restrict__ ye,
                            const int32_t* __restrict__ slot,
                            const float* __restrict__ vals,
-                           float* __restrict__ dye, float* __restrict__ dvals,
+                           T* __restrict__ dye, float* __restrict__ dvals,
                            int d, int k, int drop) {
+  using V = typename Raw<T, kVec>::type;
+  constexpr int N = Raw<T, kVec>::N;
   __shared__ float partial[kMaxWarps][kMaxK];
   const int t = blockIdx.x;
-  const int n = kVec ? d / 4 : d;
-  const float* dyt = dy + static_cast<int64_t>(t) * d;
+  const int n = d / N;
+  const V* dyt = reinterpret_cast<const V*>(dy + static_cast<int64_t>(t) * d);
   float dot[kMaxK];
 #pragma unroll
   for (int j = 0; j < kMaxK; ++j) dot[j] = 0.f;
@@ -239,25 +317,20 @@ __global__ void __launch_bounds__(kThreads)
     if (j >= k) break;
     const int s = __ldg(slot + static_cast<int64_t>(t) * k + j);
     if (s == drop) continue;
-    const float g = __ldg(vals + static_cast<int64_t>(t) * k + j);
-    const float* row = ye + static_cast<int64_t>(s) * d;
-    float* out = dye + static_cast<int64_t>(s) * d;
+    const float g = round_to<T>(__ldg(vals + static_cast<int64_t>(t) * k + j));
+    const V* row = reinterpret_cast<const V*>(ye + static_cast<int64_t>(s) * d);
+    V* out = reinterpret_cast<V*>(dye + static_cast<int64_t>(s) * d);
     float acc = 0.f;
     for (int c = threadIdx.x; c < n; c += blockDim.x) {
-      if (kVec) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(dyt) + c);
-        const float4 b = __ldg(reinterpret_cast<const float4*>(row) + c);
-        reinterpret_cast<float4*>(out)[c] = make_float4(
-            __fmul_rn(g, a.x), __fmul_rn(g, a.y), __fmul_rn(g, a.z), __fmul_rn(g, a.w));
-        acc = fmaf(a.x, b.x, acc);
-        acc = fmaf(a.y, b.y, acc);
-        acc = fmaf(a.z, b.z, acc);
-        acc = fmaf(a.w, b.w, acc);
-      } else {
-        const float a = __ldg(dyt + c);
-        out[c] = __fmul_rn(g, a);
-        acc = fmaf(a, __ldg(row + c), acc);
+      float a[N], b[N], o[N];
+      widen<T, kVec>(dyt[c], a);
+      widen<T, kVec>(row[c], b);
+#pragma unroll
+      for (int q = 0; q < N; ++q) {
+        o[q] = __fmul_rn(g, a[q]);
+        acc = fmaf(a[q], b[q], acc);
       }
+      out[c] = narrow<T, kVec>(o);
     }
     dot[j] = acc;
   }
@@ -279,6 +352,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Elements of a 16-byte vector of dtype (0 = float32, 1 = bfloat16), or
+// 0 for a dtype the kernels do not take.
+int per_vector(int dtype) { return dtype == 0 ? 4 : dtype == 1 ? 8 : 0; }
 
 // A launch shape: the wrappers' plan (glue_plan in moe_dispatch.py);
 // each thread of the combine takes vpt vectors.
@@ -321,86 +398,122 @@ cudaError_t launch_pdl(void (*kernel)(Params...), const Plan& p, size_t smem,
   return err != cudaSuccess ? err : last;
 }
 
+template <typename T>
+cudaError_t dispatch_typed(const void* x, const void* src, void* xe, int64_t rows,
+                           int d, bool vec, const Plan& p, cudaStream_t st) {
+  auto xp = static_cast<const T*>(x);
+  auto sp = static_cast<const int32_t*>(src);
+  auto op = static_cast<T*>(xe);
+  return vec ? launch_pdl(moe_dispatch_kernel<T, true>, p, 0, st, xp, sp, op, rows, d)
+             : launch_pdl(moe_dispatch_kernel<T, false>, p, 0, st, xp, sp, op, rows, d);
+}
+
 // The combine at plan p: each thread holds 8 row vectors at once, the
 // rows of 8 gates (vpt 1) or of 2 gates × 4 vectors (vpt 4).
-template <bool kVec, typename... Args>
+template <typename T, bool kVec, typename... Args>
 cudaError_t launch_combine(const Plan& p, size_t smem, cudaStream_t st, Args... args) {
-  return p.vpt == 4 ? launch_pdl(moe_combine_kernel<kVec, 2, 4>, p, smem, st, args...)
-                    : launch_pdl(moe_combine_kernel<kVec, kGroup, 1>, p, smem, st, args...);
+  return p.vpt == 4 ? launch_pdl(moe_combine_kernel<T, kVec, 2, 4>, p, smem, st, args...)
+                    : launch_pdl(moe_combine_kernel<T, kVec, kGroup, 1>, p, smem, st, args...);
+}
+
+template <typename T>
+cudaError_t combine_typed(const void* ye, const void* slot, const void* vals, void* y,
+                          int T_, int d, int k, int drop, int round_each, bool vec,
+                          const Plan& p, size_t smem, cudaStream_t st) {
+  auto yp = static_cast<const T*>(ye);
+  auto sp = static_cast<const int32_t*>(slot);
+  auto vp = static_cast<const float*>(vals);
+  auto op = static_cast<T*>(y);
+  return vec ? launch_combine<T, true>(p, smem, st, yp, sp, vp, op, T_, d, k, drop, round_each)
+             : launch_combine<T, false>(p, smem, st, yp, sp, vp, op, T_, d, k, drop, round_each);
+}
+
+template <typename T>
+cudaError_t combine_bwd_typed(const void* dy, const void* ye, const void* slot,
+                              const void* vals, void* dye, void* dvals, int T_, int d,
+                              int k, int drop, cudaStream_t st) {
+  cudaError_t err = cudaMemsetAsync(dye, 0, static_cast<size_t>(drop) * d * sizeof(T), st);
+  if (err != cudaSuccess) return err;
+  constexpr int per = 16 / static_cast<int>(sizeof(T));
+  const bool vec = d % per == 0 && aligned16(dy) && aligned16(ye) && aligned16(dye);
+  const int n = vec ? d / per : d;
+  int threads = 32;
+  while (threads < n && threads < kThreads) threads *= 2;
+  auto dp = static_cast<const T*>(dy);
+  auto yp = static_cast<const T*>(ye);
+  auto sp = static_cast<const int32_t*>(slot);
+  auto vp = static_cast<const float*>(vals);
+  auto op = static_cast<T*>(dye);
+  auto gp = static_cast<float*>(dvals);
+  if (vec) {
+    moe_combine_bwd_kernel<T, true><<<T_, threads, 0, st>>>(dp, yp, sp, vp, op, gp, d, k, drop);
+  } else {
+    moe_combine_bwd_kernel<T, false><<<T_, threads, 0, st>>>(dp, yp, sp, vp, op, gp, d, k, drop);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (T, d) float32 contiguous; src (E * C) int32 in [-1, T); xe (E * C, d).
-// vec: 16-byte vectors (d % 4 == 0, x and xe aligned), else elements; a
-// block of bx × by threads.
-extern "C" int moe_dispatch(const void* x, const void* src, void* xe,
+// dtype: 0 = float32, 1 = bfloat16 (x and xe share it).  x (T, d)
+// contiguous; src (E * C) int32 in [-1, T); xe (E * C, d).  vec: 16-byte
+// vectors (d a multiple of a vector's elements, x and xe aligned), else
+// elements; a block of bx × by threads.
+extern "C" int moe_dispatch(int dtype, const void* x, const void* src, void* xe,
                             int64_t rows, int d, int vec, int bx, int by,
                             void* stream) {
+  const int per = per_vector(dtype);
   Plan p;
-  if (rows < 1 || d < 1 || (vec && (d % 4 != 0 || !aligned16(x) || !aligned16(xe))) ||
-      !make_plan(rows, vec ? d / 4 : d, 1, bx, by, &p)) {
+  if (per == 0 || rows < 1 || d < 1 ||
+      (vec && (d % per != 0 || !aligned16(x) || !aligned16(xe))) ||
+      !make_plan(rows, vec ? d / per : d, 1, bx, by, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const float*>(x);
-  auto sp = static_cast<const int32_t*>(src);
-  auto op = static_cast<float*>(xe);
-  return static_cast<int>(vec ? launch_pdl(moe_dispatch_kernel<true>, p, 0, st, xp, sp, op, rows, d)
-                              : launch_pdl(moe_dispatch_kernel<false>, p, 0, st, xp, sp, op, rows, d));
+  return static_cast<int>(
+      dtype == 1 ? dispatch_typed<__nv_bfloat16>(x, src, xe, rows, d, vec, p, st)
+                 : dispatch_typed<float>(x, src, xe, rows, d, vec, p, st));
 }
 
-// ye (drop, d) float32 contiguous, drop = E * C; slot (T * k) int32 in
-// [0, drop]; vals (T, k) float32; y (T, d).  vec as the dispatch's; a
-// block of bx × by threads, vpt (1 or 4) vectors a thread.  Any k: the
-// block's by * k indices must fit kStageBytes.
-extern "C" int moe_combine(const void* ye, const void* slot, const void* vals,
-                           void* y, int T, int d, int k, int drop, int vec,
-                           int vpt, int bx, int by, void* stream) {
+// dtype as the dispatch's (ye and y share it).  ye (drop, d) contiguous,
+// drop = E * C; slot (T * k) int32 in [0, drop]; vals (T, k) float32; y
+// (T, d).  vec as the dispatch's; a block of bx × by threads, vpt (1 or
+// 4) vectors a thread; round_each rounds each partial sum to the element
+// type.  Any k: the block's by * k indices must fit kStageBytes.
+extern "C" int moe_combine(int dtype, const void* ye, const void* slot, const void* vals,
+                           void* y, int T, int d, int k, int drop, int round_each,
+                           int vec, int vpt, int bx, int by, void* stream) {
   constexpr int kEntry = sizeof(int32_t) + sizeof(float);
+  const int per = per_vector(dtype);
   Plan p;
-  if (T < 1 || d < 1 || k < 1 || (vpt != 1 && vpt != 4) ||
-      (vec && (d % 4 != 0 || !aligned16(ye) || !aligned16(y))) ||
+  if (per == 0 || T < 1 || d < 1 || k < 1 || (vpt != 1 && vpt != 4) ||
+      (vec && (d % per != 0 || !aligned16(ye) || !aligned16(y))) ||
       static_cast<int64_t>(by) * k * kEntry > kStageBytes ||
-      !make_plan(T, vec ? d / 4 : d, vpt, bx, by, &p)) {
+      !make_plan(T, vec ? d / per : d, vpt, bx, by, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = static_cast<size_t>(by) * k * kEntry;
   auto st = static_cast<cudaStream_t>(stream);
-  auto yp = static_cast<const float*>(ye);
-  auto sp = static_cast<const int32_t*>(slot);
-  auto vp = static_cast<const float*>(vals);
-  auto op = static_cast<float*>(y);
   return static_cast<int>(
-      vec ? launch_combine<true>(p, smem, st, yp, sp, vp, op, T, d, k, drop)
-          : launch_combine<false>(p, smem, st, yp, sp, vp, op, T, d, k, drop));
+      dtype == 1 ? combine_typed<__nv_bfloat16>(ye, slot, vals, y, T, d, k, drop, round_each,
+                                                vec, p, smem, st)
+                 : combine_typed<float>(ye, slot, vals, y, T, d, k, drop, round_each, vec, p,
+                                        smem, st));
 }
 
-// dy (T, d) float32 contiguous; ye (drop, d), drop = E * C; slot (T * k)
-// int32 in [0, drop]; vals (T, k); dye (drop, d) and dvals (T, k) written.
-extern "C" int moe_combine_bwd(const void* dy, const void* ye, const void* slot,
+// dtype as the dispatch's (dy, ye and dye share it).  dy (T, d)
+// contiguous; ye (drop, d), drop = E * C; slot (T * k) int32 in [0,
+// drop]; vals (T, k) float32; dye (drop, d) and dvals (T, k) float32
+// written.
+extern "C" int moe_combine_bwd(int dtype, const void* dy, const void* ye, const void* slot,
                                const void* vals, void* dye, void* dvals, int T,
                                int d, int k, int drop, void* stream) {
-  if (T < 1 || d < 1 || k < 1 || k > kMaxK || drop < 1) {
+  if (per_vector(dtype) == 0 || T < 1 || d < 1 || k < 1 || k > kMaxK || drop < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(dye, 0, static_cast<size_t>(drop) * d * sizeof(float), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = d % 4 == 0 && aligned16(dy) && aligned16(ye) && aligned16(dye);
-  const int n = vec ? d / 4 : d;
-  int threads = 32;
-  while (threads < n && threads < kThreads) threads *= 2;
-  auto dp = static_cast<const float*>(dy);
-  auto yp = static_cast<const float*>(ye);
-  auto sp = static_cast<const int32_t*>(slot);
-  auto vp = static_cast<const float*>(vals);
-  auto op = static_cast<float*>(dye);
-  auto gp = static_cast<float*>(dvals);
-  if (vec) {
-    moe_combine_bwd_kernel<true><<<T, threads, 0, st>>>(dp, yp, sp, vp, op, gp, d, k, drop);
-  } else {
-    moe_combine_bwd_kernel<false><<<T, threads, 0, st>>>(dp, yp, sp, vp, op, gp, d, k, drop);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      dtype == 1 ? combine_bwd_typed<__nv_bfloat16>(dy, ye, slot, vals, dye, dvals, T, d, k,
+                                                    drop, st)
+                 : combine_bwd_typed<float>(dy, ye, slot, vals, dye, dvals, T, d, k, drop, st));
 }

@@ -57,7 +57,11 @@
 //   Several: each tile publishes its ranks, counts and column sums, and
 //   the grid's last block (a second counter) scans the tiles' counts per
 //   expert into bases, sums the column sums in tile order for aux, and
-//   places every assignment.
+//   places every assignment.  Up to kStagedCounts tiles × experts it
+//   stages the counts and sums in shared memory first; past that (T >
+//   16,384 tokens at E = 64) it scans them where they lie, in the global
+//   scratch, writing the bases over the counts: no cap on T but the
+//   2^24 assignments.
 //   The tail is one block's serial work, so its code is kept short: a
 //   rolled top-k loop, route_row instantiated per logits a lane, the
 //   paths of several tiles and of more than 32 assignments out of line.
@@ -71,6 +75,7 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxPerLane = 8;  // E <= 256
 constexpr int kMaxK = 8;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kStagedCounts = 1 << 14;  // tiles × experts the last block stages
 
 // One token row, called by a whole warp: softmax over the E logits at x,
 // top-k, renormalise.  Lane l holds logits l, l + 32, ... (PL of them,
@@ -346,9 +351,10 @@ __host__ __device__ inline Smem smem_layout(int TM, int Ep, int KS, int BK, int 
   s.wc = s.rk + TM * k;                    // (kWarps, E) per-warp counts
   s.cs = s.wc + kWarps * E;                // (E) column sums of probs
   s.tc = s.cs + E;                         // (E) the tile's counts
+  const int staged = NT > 1 && NT * E <= kStagedCounts ? NT * E : 0;
   s.sb = s.tc + E;                         // (NT, E) the tiles' counts, then bases
-  s.sf = s.sb + (NT > 1 ? NT * E : 0);     // (NT, E) the tiles' column sums
-  s.term = s.sf + (NT > 1 ? NT * E : 0);   // (E) aux terms
+  s.sf = s.sb + staged;                    // (NT, E) the tiles' column sums
+  s.term = s.sf + staged;                  // (E) aux terms
   s.total = s.term + E;
   return s;
 }
@@ -411,7 +417,8 @@ __device__ __noinline__ void rank_tile(const int32_t* ids, int32_t* rk, int* wc,
 
 // Several token tiles: publish this tile's ranks, counts and sums, and
 // count the tile; the grid's last block (the return value) then scans
-// every tile's counts and sums in shared memory and places every
+// every tile's counts and sums, staged in shared memory (sb, sf) up to
+// kStagedCounts of them, else in the global scratch, and places every
 // assignment.
 __device__ __noinline__ void finish_tiles(const RouteArgs& a, int tile, int n,
                                           const int32_t* rk, const int* tc,
@@ -435,33 +442,51 @@ __device__ __noinline__ void finish_tiles(const RouteArgs& a, int tile, int n,
   if (!*last_block) return;
 
   const int n2 = a.NT * a.E;
-  for (int i0 = tid; i0 < n2; i0 += 4 * kThreads) {  // 8 loads in flight
-    int c[4];
-    float f[4];
+  int32_t* cnt = a.tcnt;  // the tiles' counts, then bases
+  const float* sums = a.colsum;
+  if (n2 <= kStagedCounts) {
+    for (int i0 = tid; i0 < n2; i0 += 4 * kThreads) {  // 8 loads in flight
+      int c[4];
+      float f[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = i0 + j * kThreads;
-      c[j] = i < n2 ? a.tcnt[i] : 0;
-      f[j] = i < n2 ? a.colsum[i] : 0.f;
-    }
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + j * kThreads;
+        c[j] = i < n2 ? a.tcnt[i] : 0;
+        f[j] = i < n2 ? a.colsum[i] : 0.f;
+      }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = i0 + j * kThreads;
-      if (i < n2) {
-        sb[i] = c[j];
-        sf[i] = f[j];
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + j * kThreads;
+        if (i < n2) {
+          sb[i] = c[j];
+          sf[i] = f[j];
+        }
       }
     }
+    cnt = sb;
+    sums = sf;
   }
   __syncthreads();
   for (int e = tid; e < a.E; e += kThreads) {  // bases: a scan over tiles
     int run = 0;
     float ps = 0.f;
-    for (int q = 0; q < a.NT; ++q) {
-      const int c = sb[q * a.E + e];
-      sb[q * a.E + e] = run;
-      run += c;
-      ps += sf[q * a.E + e];
+    for (int q0 = 0; q0 < a.NT; q0 += 8) {  // 16 loads in flight
+      int c[8];
+      float f[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int q = q0 + j;
+        c[j] = q < a.NT ? cnt[q * a.E + e] : 0;
+        f[j] = q < a.NT ? sums[q * a.E + e] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (q0 + j < a.NT) {
+          cnt[(q0 + j) * a.E + e] = run;
+          run += c[j];
+          ps += f[j];
+        }
+      }
     }
     a.counts[e] = run;
     term[e] = (ps / static_cast<float>(a.T)) *
@@ -477,7 +502,7 @@ __device__ __noinline__ void finish_tiles(const RouteArgs& a, int tile, int n,
 #pragma unroll 4
   for (int i = tid; i < N; i += kThreads) {
     const int e = a.idx[i];
-    place(a, i, e, a.slot[i] + sb[i / a.k / a.TM * a.E + e], drop);
+    place(a, i, e, a.slot[i] + cnt[i / a.k / a.TM * a.E + e], drop);
   }
 }
 

@@ -10,17 +10,23 @@ The JAX package runs these two steps in XLA around the expert einsums
   package's scatter-add of the rows into zeros value for value.
 * :func:`moe_combine` ``(ye (E, C, d), slot (T*k,), vals (T, k)) → y (T,
   d)``: ``y[t] = Σ_j vals[t, j] * ye_flat[slot[t*k + j]]`` summed over
-  ``j`` in ascending order, a dropped assignment (``slot == E*C``)
-  contributing a zero row.
+  ``j`` in ascending order in float32, a dropped assignment (``slot ==
+  E*C``) contributing a zero row, each gate first rounded to ye's type
+  and the sum rounded once to it: in bfloat16 JAX's jitted lines
+  (``repro/models/moe.py:134-135``) bit for bit.
 * :func:`moe_combine_bwd` ``(dy (T, d), ye, slot, vals) → (dye (E, C,
   d), dvals (T, k))``, the gradient of the combine:
-  ``dye[slot[t*k + j]] = vals[t, j] * dy[t]`` (each kept slot is filled
-  by one assignment; a slot no token fills is 0) and ``dvals[t, j] =
-  ⟨ye_flat[slot[t*k + j]], dy[t]⟩``, 0 for a dropped assignment.
+  ``dye[slot[t*k + j]] = vals[t, j] * dy[t]`` (the gate rounded to dy's
+  type first; each kept slot is filled by one assignment; a slot no
+  token fills is 0) and ``dvals[t, j] = ⟨ye_flat[slot[t*k + j]],
+  dy[t]⟩`` in float32, 0 for a dropped assignment.
 
 All three launch ``csrc/moe_dispatch.cu`` on the current CUDA stream and
 count their launches; the ``*_plain`` versions are what ``kernels.ops``
-runs for a CPU tensor.  Float32 only.  The dispatch and the combine
+runs for a CPU tensor.  x, ye and dy are float32 or bfloat16 (float16
+raises: no JAX config reaches it); gates, ``dvals`` and every sum are
+float32.  A 16-byte vector holds 4 floats or 8 bfloat16, and the plans
+count vectors of either (:func:`per_vector`).  The dispatch and the combine
 launch with programmatic dependent launch: their blocks may be scheduled
 while the previous kernel in the stream drains, and wait for it to
 finish before they read any input.  Their grids are planned here
@@ -31,7 +37,9 @@ Functions, over the kernels or over the plain versions.  The combine's
 backward is ``moe_combine_bwd``; the dispatch's is ``dx[t] = Σ_j
 dxe_flat[slot[t*k + j]]`` (the gradient of the JAX package's scatter-add
 at ``repro/models/moe.py:121-125``), which is ``moe_combine`` with unit
-gates, so the dispatch needs ``slot`` beside ``src``.
+gates and ``round_each``: XLA transposes the repeat of the token rows
+into a sum over the k gates in x's type, which in bfloat16 rounds after
+each add.  So the dispatch needs ``slot`` beside ``src``.
 """
 
 from __future__ import annotations
@@ -47,12 +55,15 @@ from repro_torch.kernels import build
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.moe_dispatch.argtypes = [P, P, P, ctypes.c_int64] + [I] * 4 + [P]
+    lib.moe_dispatch.argtypes = [I, P, P, P, ctypes.c_int64] + [I] * 4 + [P]
     lib.moe_dispatch.restype = I
-    lib.moe_combine.argtypes = [P] * 4 + [I] * 8 + [P]
+    lib.moe_combine.argtypes = [I] + [P] * 4 + [I] * 9 + [P]
     lib.moe_combine.restype = I
-    lib.moe_combine_bwd.argtypes = [P] * 6 + [I] * 4 + [P]
+    lib.moe_combine_bwd.argtypes = [I] + [P] * 6 + [I] * 4 + [P]
     lib.moe_combine_bwd.restype = I
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' element types
 
 
 THREADS = 256  # the most threads a block (kThreads in the source)
@@ -93,9 +104,25 @@ def combine_plan(T: int, n: int, k: int, sms: int) -> Dict[str, int]:
     return glue_plan(T, n, sms, wide=4 if k <= 2 else 1, max_y=STAGE_BYTES // (8 * k))
 
 
+def per_vector(dtype: torch.dtype) -> int:
+    """Elements of a 16-byte vector: 4 floats or 8 bfloat16."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
 def _vec(d: int, *tensors: torch.Tensor) -> bool:
-    """16-byte vectors: d a multiple of 4 and every pointer aligned."""
-    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+    """16-byte vectors: d a multiple of a vector's elements and every
+    pointer aligned."""
+    return (d % per_vector(tensors[0].dtype) == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _dtype(what: str, *tensors: torch.Tensor) -> int:
+    """The kernels' code of the tensors' one element type, or raise."""
+    dt = tensors[0].dtype
+    if dt not in _DTYPES or any(t.dtype != dt for t in tensors):
+        raise ValueError(f"{what}: the kernel takes float32 or bfloat16, all one type, "
+                         f"got {[str(t.dtype) for t in tensors]}")
+    return _DTYPES[dt]
 
 
 def _check_dispatch(x: torch.Tensor, src: torch.Tensor, E: int, C: int) -> None:
@@ -124,19 +151,21 @@ def moe_dispatch(x: torch.Tensor, src: torch.Tensor, E: int, C: int) -> torch.Te
     """The expert slots' rows on the card → ``xe (E, C, d)`` in x's type."""
     _check_dispatch(x, src, E, C)
     _on_card("moe_dispatch", x, src)
-    if x.dtype != torch.float32 or src.dtype != torch.int32:
-        raise ValueError("moe_dispatch: x must be float32 and src int32")
+    dtype = _dtype("moe_dispatch", x)
+    if src.dtype != torch.int32:
+        raise ValueError("moe_dispatch: src must be int32")
     d = x.shape[1]
     xe = torch.empty((E, C, d), dtype=x.dtype, device=x.device)
     if xe.numel() == 0:  # nothing to launch, so nothing to count
         return xe
     vec = _vec(d, x, xe)
-    plan = glue_plan(E * C, d // 4 if vec else d, build.sm_count(x.device))
+    plan = glue_plan(E * C, d // per_vector(x.dtype) if vec else d,
+                     build.sm_count(x.device))
     lib = build.library("moe_dispatch", _bind)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.moe_dispatch(x.data_ptr(), src.data_ptr(), xe.data_ptr(), E * C, d,
-                                vec, plan["bx"], plan["by"], stream)
+        code = lib.moe_dispatch(dtype, x.data_ptr(), src.data_ptr(), xe.data_ptr(), E * C,
+                                d, vec, plan["bx"], plan["by"], stream)
     build.check(lib, code, "moe_dispatch")
     moe_dispatch.launches += 1
     return xe
@@ -154,14 +183,15 @@ def moe_dispatch_plain(x: torch.Tensor, src: torch.Tensor, E: int, C: int
     return rows[src.long()].reshape(E, C, x.shape[1])
 
 
-def moe_combine(ye: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor
-                ) -> torch.Tensor:
+def moe_combine(ye: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
+                round_each: bool = False) -> torch.Tensor:
     """The gated sum of each token's expert outputs on the card → ``y (T,
-    d)``."""
+    d)`` in ye's type; ``round_each`` rounds each partial sum to it."""
     _check_combine(ye, slot, vals)
     _on_card("moe_combine", ye, slot, vals)
-    if ye.dtype != torch.float32 or vals.dtype != torch.float32 or slot.dtype != torch.int32:
-        raise ValueError("moe_combine: ye and vals must be float32 and slot int32")
+    dtype = _dtype("moe_combine", ye)
+    if vals.dtype != torch.float32 or slot.dtype != torch.int32:
+        raise ValueError("moe_combine: vals must be float32 and slot int32")
     E, C, d = ye.shape
     T, k = vals.shape
     if k > STAGE_BYTES // 8:
@@ -171,13 +201,14 @@ def moe_combine(ye: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor
     if y.numel() == 0:  # nothing to launch, so nothing to count
         return y
     vec = _vec(d, ye, y)
-    plan = combine_plan(T, d // 4 if vec else d, k, build.sm_count(ye.device))
+    plan = combine_plan(T, d // per_vector(ye.dtype) if vec else d, k,
+                        build.sm_count(ye.device))
     lib = build.library("moe_dispatch", _bind)
     with torch.cuda.device(ye.device):
         stream = torch.cuda.current_stream(ye.device).cuda_stream
-        code = lib.moe_combine(ye.data_ptr(), slot.data_ptr(), vals.data_ptr(),
-                               y.data_ptr(), T, d, k, E * C, vec, plan["vpt"], plan["bx"],
-                               plan["by"], stream)
+        code = lib.moe_combine(dtype, ye.data_ptr(), slot.data_ptr(), vals.data_ptr(),
+                               y.data_ptr(), T, d, k, E * C, int(round_each), vec,
+                               plan["vpt"], plan["bx"], plan["by"], stream)
     build.check(lib, code, "moe_combine")
     moe_combine.launches += 1
     return y
@@ -186,21 +217,27 @@ def moe_combine(ye: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor
 moe_combine.launches = 0
 
 
-def moe_combine_plain(ye: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor
-                      ) -> torch.Tensor:
+def moe_combine_plain(ye: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
+                      round_each: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`moe_combine`: the gather of
-    ``repro/models/moe.py:133-135``, then the gated sum with its terms
-    added in ascending ``j``, which fixes the order of the rounding."""
+    ``repro/models/moe.py:133-135``, then the gated sum in float32 with
+    its terms added in ascending ``j``, which fixes the order of the
+    rounding, rounded once to ye's type (``round_each``: after each add).
+    Each gate is first rounded to ye's type: in bfloat16 this is
+    ``bf16(Σ_j f32(ye_j)·f32(bf16(g_j)))``, JAX's jitted lines bit for
+    bit.  Float32 is as it always was."""
     _check_combine(ye, slot, vals)
     E, C, d = ye.shape
     T, K = vals.shape
     ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))], dim=0)
-    yk = ye_flat[slot.long()].reshape(T, K, d)
-    g = vals.to(yk.dtype)
+    yk = ye_flat[slot.long()].reshape(T, K, d).float()
+    g = vals.to(ye.dtype).float()
     y = yk[:, 0] * g[:, 0, None]
     for j in range(1, K):
         y = y + yk[:, j] * g[:, j, None]
-    return y
+        if round_each:
+            y = y.to(ye.dtype).float()
+    return y.to(ye.dtype)
 
 
 MAX_K = 8  # gates a token the backward kernel keeps in registers
@@ -219,9 +256,9 @@ def moe_combine_bwd(dy: torch.Tensor, ye: torch.Tensor, slot: torch.Tensor,
     """The combine's gradient on the card → ``(dye (E, C, d), dvals (T, k))``."""
     _check_combine_bwd(dy, ye, slot, vals)
     _on_card("moe_combine_bwd", dy, ye, slot, vals)
-    if (dy.dtype != torch.float32 or ye.dtype != torch.float32
-            or vals.dtype != torch.float32 or slot.dtype != torch.int32):
-        raise ValueError("moe_combine_bwd: dy, ye and vals must be float32 and slot int32")
+    dtype = _dtype("moe_combine_bwd", dy, ye)
+    if vals.dtype != torch.float32 or slot.dtype != torch.int32:
+        raise ValueError("moe_combine_bwd: vals must be float32 and slot int32")
     E, C, d = ye.shape
     T, k = vals.shape
     if k > MAX_K:
@@ -236,7 +273,7 @@ def moe_combine_bwd(dy: torch.Tensor, ye: torch.Tensor, slot: torch.Tensor,
     lib = build.library("moe_dispatch", _bind)
     with torch.cuda.device(ye.device):
         stream = torch.cuda.current_stream(ye.device).cuda_stream
-        code = lib.moe_combine_bwd(dy.data_ptr(), ye.data_ptr(), slot.data_ptr(),
+        code = lib.moe_combine_bwd(dtype, dy.data_ptr(), ye.data_ptr(), slot.data_ptr(),
                                    vals.data_ptr(), dye.data_ptr(), dvals.data_ptr(),
                                    T, d, k, E * C, stream)
     build.check(lib, code, "moe_combine_bwd")
@@ -250,15 +287,15 @@ moe_combine_bwd.launches = 0
 def moe_combine_bwd_plain(dy: torch.Tensor, ye: torch.Tensor, slot: torch.Tensor,
                           vals: torch.Tensor):
     """Plain PyTorch version of :func:`moe_combine_bwd`: the rows each
-    gate read, their dot products with ``dy``, and ``vals * dy`` written
-    to the kept slots (every dropped assignment lands in the extra row
-    ``E*C``, which is cut off)."""
+    gate read, their dot products with ``dy`` in float32, and ``vals *
+    dy`` in dy's type written to the kept slots (every dropped assignment
+    lands in the extra row ``E*C``, which is cut off)."""
     _check_combine_bwd(dy, ye, slot, vals)
     E, C, d = ye.shape
     T, K = vals.shape
     s = slot.long()
     ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))], dim=0)
-    dvals = (ye_flat[s].reshape(T, K, d) * dy[:, None, :]).sum(dim=-1)
+    dvals = (ye_flat[s].reshape(T, K, d).float() * dy.float()[:, None, :]).sum(dim=-1)
     dye = ye.new_zeros((E * C + 1, d))
     dye[s] = (vals.to(dy.dtype)[:, :, None] * dy[:, None, :]).reshape(T * K, d)
     return dye[:E * C].reshape(E, C, d), dvals
@@ -268,7 +305,8 @@ def moe_combine_bwd_plain(dy: torch.Tensor, ye: torch.Tensor, slot: torch.Tensor
 # autograd
 # --------------------------------------------------------------------- #
 class Dispatch(torch.autograd.Function):
-    """``xe = dispatch(x, src)``; ``dx = moe_combine(dxe, slot, 1)``."""
+    """``xe = dispatch(x, src)``; ``dx = moe_combine(dxe, slot, 1,
+    round_each=True)``."""
 
     @staticmethod
     def forward(ctx, x, src, slot, E, C, kernel):
@@ -280,10 +318,11 @@ class Dispatch(torch.autograd.Function):
     def backward(ctx, dxe):
         (slot,) = ctx.saved_tensors
         T = ctx.T
-        ones = torch.ones((T, slot.numel() // max(T, 1)), dtype=dxe.dtype,
+        ones = torch.ones((T, slot.numel() // max(T, 1)), dtype=torch.float32,
                           device=dxe.device)
         combine = moe_combine if ctx.kernel else moe_combine_plain
-        return combine(dxe.contiguous(), slot, ones), None, None, None, None, None
+        dx = combine(dxe.contiguous(), slot, ones, round_each=True)
+        return dx, None, None, None, None, None
 
 
 class Combine(torch.autograd.Function):

@@ -112,6 +112,13 @@ def paged_attention(
 ) -> torch.Tensor:
     """Decode attention over pages on the card → ``(B, H, D)`` in q's type.
 
+    q, k_pages and v_pages are all float32 or all bfloat16, or q is
+    bfloat16 over float32 pages (the serving engine's store keeps float32
+    under a bfloat16 model): q is then widened to float32, which is exact,
+    as JAX's function widens it before its products
+    (``repro/kernels/ref.py:61-62``), and the float32 result is rounded
+    once to q's type.
+
     Block-table entries must lie in ``[0, F)``: like the TPU kernel, the
     kernel reads the frames it is given without checking them (a check
     would cost a device→host sync per call).
@@ -128,9 +135,13 @@ def paged_attention(
         )
     if D > MAX_HEAD_DIM:
         raise ValueError(f"paged_attention: head_dim {D} > {MAX_HEAD_DIM}")
+    out_dtype = q.dtype
+    if (q.dtype == torch.bfloat16 and k_pages.dtype == torch.float32
+            and v_pages.dtype == torch.float32):
+        q = q.float()
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError("paged_attention: q, k_pages and v_pages must all be "
-                         "float32 or all bfloat16")
+                         "float32 or all bfloat16, or q bfloat16 over float32 pages")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.device != q.device:
             raise ValueError(f"paged_attention: {name} on {t.device}, q on {q.device}")
@@ -150,7 +161,7 @@ def paged_attention(
     q = q.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:  # nothing to launch, so nothing to count
-        return out
+        return out.to(out_dtype)
     G = H // Hkv
     GC, NW, NS, pps = split_plan(B, Hkv, G, MP, build.sm_count(q.device))
     lib = build.library("paged_attention", _bind)
@@ -176,7 +187,7 @@ def paged_attention(
         )
     build.check(lib, code, "paged_attention")
     paged_attention.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 paged_attention.launches = 0

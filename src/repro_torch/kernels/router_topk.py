@@ -43,7 +43,6 @@ from repro_torch.kernels import build
 MAX_EXPERTS = 256  # 32 lanes × 8 logits a lane in the kernel
 MAX_K = 8
 MAX_ASSIGNMENTS = 1 << 24  # T * k and E * C the fused route takes
-MAX_TILE_COUNTS = 1 << 14  # token tiles × experts: its last block's bases, in shared memory
 THREADS = 256  # a block of moe_route
 BK_MIN, BK_MAX = 32, 256  # depth of its k-tiles
 MAX_CHUNKS = 16  # chunks of d a token tile is split over
@@ -224,9 +223,6 @@ def moe_route(x: torch.Tensor, w: torch.Tensor, k: int, C: int) -> Route:
         return out
     plan = route_plan(T, d, E, build.sm_count(dev))
     NT, NC, TM, Ep = plan["NT"], plan["NC"], plan["TM"], 4 * plan["NE"]
-    if NT * E > MAX_TILE_COUNTS:
-        raise ValueError(f"moe_route: {NT} token tiles of {TM} × {E} experts exceed the "
-                         f"kernel's {MAX_TILE_COUNTS} tile counts")
     lib = build.library("router_topk", _bind)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

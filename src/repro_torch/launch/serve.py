@@ -51,9 +51,12 @@ from repro_torch.serving import EngineConfig, ServingEngine
 
 
 def strict_fp32() -> None:
-    """Full float32 matmuls and convolutions: TF32 off for both."""
+    """Full float32 matmuls and convolutions: TF32 off for both, and
+    bfloat16 products summed in float32 throughout (no reduced-precision
+    reduction), as the CPU's are."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def check_fits(cfg: ModelConfig, device) -> None:

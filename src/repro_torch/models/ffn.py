@@ -7,7 +7,6 @@ configuration, the param dict holds tensors only.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import nn
 from repro_torch.models.nn import Params
@@ -32,10 +31,10 @@ def init_ffn(generator: torch.Generator, d_model: int, d_ff: int,
 
 def ffn_fwd(p: Params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     if kind == "swiglu":
-        return nn.dense(p["wo"], F.silu(nn.dense(p["wi_gate"], x)) * nn.dense(p["wi_up"], x))
+        return nn.dense(p["wo"], nn.silu(nn.dense(p["wi_gate"], x)) * nn.dense(p["wi_up"], x))
     if kind == "geglu":
         return nn.dense(
             p["wo"],
-            F.gelu(nn.dense(p["wi_gate"], x), approximate="tanh") * nn.dense(p["wi_up"], x),
+            nn.gelu_tanh(nn.dense(p["wi_gate"], x)) * nn.dense(p["wi_up"], x),
         )
-    return nn.dense(p["wo"], F.gelu(nn.dense(p["wi"], x), approximate="tanh"))
+    return nn.dense(p["wo"], nn.gelu_tanh(nn.dense(p["wi"], x)))

@@ -18,7 +18,8 @@ Under autograd the three calls carry the gradient of JAX's ``moe_fwd``
 (router, experts, input, shared FFN): the route's through its gates and
 aux loss, the dispatch's as the sum of each token's slot gradients, the
 combine's through the ``moe_combine_bwd`` kernel (``kernels/ops.py``).
-Float32 only on the card: the MoE kernels take no other type.
+The expert weights and activations may be float32 or bfloat16 (the
+router stays float32, as JAX's); the MoE kernels take either.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops as kernel_ops
@@ -110,7 +110,7 @@ def moe_fwd(p: Params, cfg: MoeConfig, x: torch.Tensor,
     xe = _ep(replicated(kernel_ops.moe_dispatch, xt, r.src, E, C, impl=impl,
                          slot=r.slot))  # (E, C, d)
 
-    h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * torch.einsum(
+    h = nn.silu(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * torch.einsum(
         "ecd,edf->ecf", xe, p["wi_up"])
     ye = _ep(torch.einsum("ecf,efd->ecd", _ep(h), p["wo"])).contiguous()  # (E, C, d)
 

@@ -13,6 +13,7 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 Params = Dict[str, Any]
 
@@ -81,6 +82,32 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(dt)
+
+
+def _const(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as JAX rounds a weak-typed constant."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``jax.nn.silu``, ``x · (1 / (1 + e^-x))``.  Below float32 every
+    step rounds to ``x``'s type, as XLA computes it in eager and jitted
+    code alike; ``F.silu`` rounds once and differs from it in 5% of the
+    bfloat16 inputs.  Float32 stays ``F.silu``."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``jax.nn.gelu(x, approximate=True)``.  Below float32 every step
+    rounds to ``x``'s type, its constants too, as XLA computes it (``F.gelu``
+    differs in 4% of the bfloat16 inputs).  Float32 stays ``F.gelu``."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = _const(math.sqrt(2 / math.pi), x.dtype)
+    cube = x * x * x
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + _const(0.044715, x.dtype) * cube))))
 
 
 def layernorm_init(d: int, *, dtype=torch.float32, device="cuda") -> Params:

@@ -530,7 +530,7 @@ class ServingEngine:
         p0 = self.layers[0].get("base", self.layers[0])
         q_probe = nn.dense(p0["attn"]["wq"], nn.rmsnorm(p0["norm1"], x))
         q_mean = (q_probe.reshape(a0.n_kv_heads, -1, a0.head_dim)
-                  .mean(dim=1).cpu().numpy())  # (Hkv, D)
+                  .mean(dim=1).float().cpu().numpy())  # (Hkv, D)
         older = seq.pages[: max(0, len(seq.pages) - self.ecfg.recent_pages)]
         older_scores = np.asarray([
             float(np.einsum("hd,lhd->", q_mean, self._summaries[pid]))
@@ -703,6 +703,10 @@ class ServingEngine:
         params, k_store, v_store = self.params, self.kv.k_store, self.kv.v_store
         B = toks.shape[0]
         x = nn.embed(params["embed"], toks[:, None])  # (B, 1, d)
+        # what the norms read: XLA keeps each residual sum of JAX's jitted
+        # step in float32 for the norm after it (the stream itself rounds
+        # to x's type), so a bfloat16 norm reads the unrounded sum
+        xs = x
         pos = q_pos[:, None]
         wf, ws = wframe.long(), wslot.long()
         k_layers = []
@@ -710,7 +714,7 @@ class ServingEngine:
             p = self.layers[li]
             pa = p.get("base", p)
             a = spec.attn
-            h = nn.rmsnorm(pa["norm1"], x)
+            h = nn.rmsnorm(pa["norm1"], xs).to(x.dtype)
             q = nn.dense(pa["attn"]["wq"], h).reshape(B, 1, a.n_heads, a.head_dim)
             k = nn.dense(pa["attn"]["wk"], h).reshape(B, 1, a.n_kv_heads, a.head_dim)
             v = nn.dense(pa["attn"]["wv"], h).reshape(B, 1, a.n_kv_heads, a.head_dim)
@@ -727,13 +731,15 @@ class ServingEngine:
                 q[:, 0], k_store[:, li], v_store[:, li], block_table,
                 page_pos=page_start, q_pos=q_pos, window=a.window,
             )  # (B, H, D)
-            x = x + self._attn_out(p, o.reshape(B, 1, -1).to(x.dtype), h)
+            xs = x.float() + self._attn_out(p, o.reshape(B, 1, -1).to(x.dtype), h).float()
+            x = xs.to(x.dtype)
             if spec.has_ffn:
                 # padded lanes go through the MoE too, as in the JAX
                 # engine: they count towards each expert's capacity
-                x = x + self._ffn(pa, spec, x)
+                xs = x.float() + self._ffn(pa, spec, xs, x.dtype).float()
+                x = xs.to(x.dtype)
             k_layers.append(k_t)
-        toks_out = self._logits(x)[:, -1].argmax(dim=-1).to(torch.int32)
+        toks_out = self._logits(xs, x.dtype)[:, -1].argmax(dim=-1).to(torch.int32)
         # incremental page-key summaries; padded lanes share the trash
         # slot, so the sum must accumulate duplicates
         k_all = torch.stack(k_layers, dim=1).float()  # (B, L, Hkv, D)
@@ -742,9 +748,10 @@ class ServingEngine:
         self._kcnt.index_put_(idx, torch.ones(B, device=self.device), accumulate=True)
         return toks_out
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and LM head: ``(B, 1, d)`` → ``(B, 1, vocab)``."""
-        h = nn.rmsnorm(self.params["final_norm"], x)
+    def _logits(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        """Final norm (its output in ``dtype``, default x's) and LM head:
+        ``(B, 1, d)`` → ``(B, 1, vocab)``."""
+        h = nn.rmsnorm(self.params["final_norm"], x).to(dtype or x.dtype)
         if self.cfg.tie_embeddings:
             return h @ self.params["embed"]["table"].T.to(h.dtype)
         return nn.dense(self.params["lm_head"], h)
@@ -759,10 +766,10 @@ class ServingEngine:
         return y
 
     @staticmethod
-    def _ffn(pa: Any, spec: Any, x: torch.Tensor) -> torch.Tensor:
-        """The block's FFN on ``norm2(x)``: MoE (``moe_route``,
-        ``moe_dispatch``, ``moe_combine``) or dense."""
-        h = nn.rmsnorm(pa["norm2"], x)
+    def _ffn(pa: Any, spec: Any, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        """The block's FFN on ``norm2(x)`` (in ``dtype``, default x's): MoE
+        (``moe_route``, ``moe_dispatch``, ``moe_combine``) or dense."""
+        h = nn.rmsnorm(pa["norm2"], x).to(dtype or x.dtype)
         if spec.moe is not None:
             return moe_fwd(pa["moe"], spec.moe, h)[0]
         return ffn_fwd(pa["ffn"], h, spec.ffn_kind)

@@ -145,28 +145,30 @@ def wrappers(torch, lib, parent, one_vector=False):
     def dispatch(x, src, E, C):
         d = x.shape[1]
         xe = torch.empty((E, C, d), device=x.device)
-        plan = ()
-        if not parent:
+        dtype, plan = (), ()
+        if not parent:  # float32 (0) ahead, the plan behind
             vec = md._vec(d, x, xe)
             p = md.glue_plan(E * C, d // 4 if vec else d, build.sm_count(x.device))
-            plan = (vec, p["bx"], p["by"])
-        build.check(lib, lib.moe_dispatch(x.data_ptr(), src.data_ptr(), xe.data_ptr(),
-                                          E * C, d, *plan, stream()), "moe_dispatch")
+            dtype, plan = (0,), (vec, p["bx"], p["by"])
+        build.check(lib, lib.moe_dispatch(*dtype, x.data_ptr(), src.data_ptr(),
+                                          xe.data_ptr(), E * C, d, *plan, stream()),
+                    "moe_dispatch")
         return xe
 
-    def combine(ye, slot, vals):
+    def combine(ye, slot, vals, round_each=False):  # a no-op in float32
         E, C, d = ye.shape
         T, k = vals.shape
         y = torch.empty((T, d), device=ye.device)
-        plan = ()
-        if not parent:
+        dtype, plan = (), ()
+        if not parent:  # float32 (0) ahead; round_each and the plan behind
             vec = md._vec(d, ye, y)
             n, sms = d // 4 if vec else d, build.sm_count(ye.device)
             p = (md.glue_plan(T, n, sms, max_y=md.STAGE_BYTES // (8 * k)) if one_vector
                  else md.combine_plan(T, n, k, sms))
-            plan = (vec, p["vpt"], p["bx"], p["by"])
-        build.check(lib, lib.moe_combine(ye.data_ptr(), slot.data_ptr(), vals.data_ptr(),
-                                         y.data_ptr(), T, d, k, E * C, *plan, stream()),
+            dtype, plan = (0,), (int(round_each), vec, p["vpt"], p["bx"], p["by"])
+        build.check(lib, lib.moe_combine(*dtype, ye.data_ptr(), slot.data_ptr(),
+                                         vals.data_ptr(), y.data_ptr(), T, d, k, E * C,
+                                         *plan, stream()),
                     "moe_combine")
         return y
 
