@@ -46,7 +46,13 @@ into ``build/``) and runs these phases:
    the engine's transposed views), S=512, D=64, a ragged S=513, phi3.5's
    heads at S=2048, widths off its templates (D=80, 96) and rows off
    16-byte alignment (the element-by-element loader); plus the
-   small sweeps of ``tests/test_kernels.py``.  The five other families
+   small sweeps of ``tests/test_kernels.py``; in bfloat16 on the tensor
+   cores (which path each case took is printed; ``cuobjdump -sass`` of
+   the build must show HMMA in every bf16 tensor-core kernel and in no
+   other), the bf16 serve prefill (phi3.5-moe's heads at S=47 through
+   the views), phi3.5's heads at S=2048, D=96, D=256 with a window, each
+   timed beside SDPA; ``moe_route`` also at both routers' training
+   T=2048 (several token tiles, the second launch places).  The five other families
    the engine serves (``FAMILIES``) at their own shapes:
    ``paged_attention`` at each one's decode over its serve store
    (gemma3-4b (8, 8, 256) Hkv=4 with and without its window of 1024,
@@ -344,6 +350,31 @@ def ptxas_usage(text: str):
         for r, name in zip(out, names.splitlines()):
             r[0] = name
     return [tuple(r) for r in out]
+
+
+def sass_mma(torch, lib_path) -> dict:
+    """``{function: tensor-core instructions}`` of a built library: the
+    ``HMMA`` and ``HGMMA`` lines of each function in ``cuobjdump -sass``,
+    names demangled where ``c++filt`` is found."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    if counts and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        counts = dict(zip(names, counts.values()))
+    return counts
 
 
 # --------------------------------------------------------------------- #
@@ -1225,6 +1256,23 @@ def check_moe_route(torch, gen, cfg, flush, fails):
             fails.append(f"moe_route {name}: {out[name]}")
         if not all(glue.values()):
             fails.append(f"moe_dispatch/moe_combine {name}: {glue}")
+    # the training shape (T=2048) of both routers: 32 token tiles, placed
+    # by the second launch; on a generator of their own (the cases above
+    # keep their inputs)
+    gen2 = torch.Generator(device="cuda").manual_seed(2048)
+    train = {}
+    for key, (dd, EE, kk) in (("phi3_5_moe_train_T2048", (d, E, K)),
+                              ("deepseek_v2_lite_train_T2048", (2048, 64, 6))):
+        x2 = torch.randn((2048, dd), generator=gen2, device="cuda")
+        w2 = torch.randn((dd, EE), generator=gen2, device="cuda") * 0.02
+        C2 = max(1, int(1.25 * 2048 * kk / EE))
+        name = f"T=2048 d={dd} E={EE} k={kk} ({key})"
+        out[name], ok, glue = check_route_case(torch, gen2, name, x2, w2, kk, C2)
+        errs.append(out[name]["max_abs_err"])
+        lerrs.append(out[name]["logits_max_abs_err"])
+        if not (ok and all(glue.values())):
+            fails.append(f"moe_route {name}: {out[name]}")
+        train[key] = (x2, w2, kk, C2)
     try:  # refused before it runs: the counters stay as they are
         ops.moe_route(cases[0][1], cases[0][2], 9, 1, impl="kernel")
         fails.append("moe_route took k=9")
@@ -1240,6 +1288,7 @@ def check_moe_route(torch, gen, cfg, flush, fails):
     timed_cases = {"decode": cases[0][0], "prefill": cases[1][0],
                    "deepseek_v2_lite": cases[-1][0]}
     route_t = {key: route_times(torch, flush, *by[n]) for key, n in timed_cases.items()}
+    route_t.update({key: route_times(torch, flush, *c) for key, c in train.items()})
     # the decode route with L2 warm (no flush): the launch's serial tail
     # runs in one block, and a cold L2 holds neither its data nor its code
     x, w, k, C = by[timed_cases["decode"]]
@@ -1263,7 +1312,9 @@ def check_moe_route(torch, gen, cfg, flush, fails):
         **route_t["decode"],
         "prefill_T47": route_t["prefill"],
         "deepseek_v2_lite_T4096_d2048_E64_k6": route_t["deepseek_v2_lite"],
-        "checks": len(cases),
+        "phi3_5_moe_train_T2048_d4096_E16_k2": route_t["phi3_5_moe_train_T2048"],
+        "deepseek_v2_lite_train_T2048_d2048_E64_k6": route_t["deepseek_v2_lite_train_T2048"],
+        "checks": len(cases) + len(train),
     }]
     for kname in ("moe_dispatch", "moe_combine"):
         rows.append({
@@ -1278,7 +1329,7 @@ def check_moe_route(torch, gen, cfg, flush, fails):
             "prefill_T47": glue_t["prefill"][kname],
             "deepseek_v2_lite_T4096_d2048_E64_k6": glue_t["deepseek_v2_lite"][kname],
         })
-    del cases, by
+    del cases, by, train
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -1328,7 +1379,10 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
         err = (got.float() - want.float()).abs().max().item()
         ok = bool(torch.isfinite(got).all()) and torch.allclose(
             got.float(), want.float(), atol=TOL[dtype_name], rtol=TOL[dtype_name])
-        checks.append({"case": name, "dtype": dtype_name, "max_abs_err": err, "ok": ok})
+        checks.append({"case": name, "dtype": dtype_name, "max_abs_err": err, "ok": ok,
+                       "path": fa.kernel_path(q, k, v),
+                       # outputs that round away from the plain version's
+                       "differ": float((got != want).float().mean())})
         if not ok:
             fails.append(f"flash_attention {name} {dtype_name}: max_abs_err {err}")
 
@@ -1408,6 +1462,36 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
             f"D={a.head_dim} window={window} (views)", *wqkv, True, window, "float32")
         fam_cases[f"{wname} windowed run S={wS} window={window}"] = (wqkv, window)
 
+    # bfloat16 on the tensor cores, on a generator of their own (the
+    # float32 cases above keep their inputs): the bf16 serve run's prefill
+    # (phi3.5-moe's heads at S=47 through the engine's views), phi3.5's
+    # heads at S=2048, widths 96 and 256, and rows off 16-byte alignment
+    # (the CUDA-core path); kernel_bench's S=512, S=513 and D=80 above
+    gen16 = torch.Generator(device="cuda").manual_seed(1313)
+
+    def rand16(*shape):
+        return torch.randn(shape, generator=gen16, device="cuda").to(torch.bfloat16)
+
+    serve16 = (rand16(1, 47, 32, 128).transpose(1, 2), rand16(1, 47, 8, 128).transpose(1, 2),
+               rand16(1, 47, 8, 128).transpose(1, 2))
+    run("phi3.5-moe bf16 serve prefill H=32 Hkv=8 S=47 D=128 (views)", *serve16, True,
+        None, "bfloat16")
+    long16 = (rand16(1, 32, 2048, 128), rand16(1, 8, 2048, 128), rand16(1, 8, 2048, 128))
+    run("phi3.5-moe heads bf16 B=1 H=32 Hkv=8 S=2048 D=128", *long16, True, None,
+        "bfloat16")
+    run("bf16 B=1 H=8 Hkv=2 S=512 D=96", rand16(1, 8, 512, 96), rand16(1, 2, 512, 96),
+        rand16(1, 2, 512, 96), True, None, "bfloat16")
+    run("bf16 B=1 H=8 Hkv=4 S=300 D=256 window=128", rand16(1, 8, 300, 256),
+        rand16(1, 4, 300, 256), rand16(1, 4, 300, 256), True, 128, "bfloat16")
+    odd16 = tuple(torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+                  for t in kb16)
+    run("bf16 unaligned rows B=1 H=8 Hkv=2 S=512 D=64", *odd16, True, None, "bfloat16")
+    paths = {f"{c['case']} {c['dtype']}": c["path"] for c in checks}
+    log(f"[kernels] flash_attention paths {json.dumps(paths)}")
+    if not all(c["path"] == "tensor cores" for c in checks
+               if c["dtype"] == "bfloat16" and "unaligned" not in c["case"]):
+        fails.append("flash_attention: a 16-byte aligned bf16 case missed the tensor cores")
+
     def timed(q, k, v, iters=50, window=None):
         nbytes, flops = flash_work(torch, q, k, True, window)
         b_ms, b_by = bound(nbytes, flops, str(q.dtype).removeprefix("torch."))
@@ -1440,6 +1524,8 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
         "max_abs_err_bf16": max(c["max_abs_err"] for c in checks
                                 if c["dtype"] == "bfloat16"),
         "tolerance_bf16": TOL["bfloat16"],
+        "bf16_outputs_differing_from_plain": {c["case"]: c["differ"] for c in checks
+                                              if c["dtype"] == "bfloat16"},
         **timed(*timed_cases["phi3.5-moe prefill"]),
         "tinyllama_prefill_D64_Hkv4": timed(*timed_cases["tinyllama-1.1b prefill"]),
         "tinyllama_traffic_prefills": {
@@ -1448,6 +1534,9 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
         "kernel_bench_S512_D64_Hkv2": timed(*kb),
         "phi3_5_heads_S2048_D128_Hkv8": timed(*long, iters=10),
         "bf16_S512_D64_Hkv2": timed(*kb16),
+        "bf16_serve_prefill_S47_D128_Hkv8_views": timed(*serve16),
+        "bf16_phi3_5_heads_S2048_D128_Hkv8": timed(*long16, iters=10),
+        "bf16_general_path_unaligned_S512_D64_Hkv2": timed(*odd16),
         "padded_S512_D96_Hkv2": timed(*d96),
         "general_path_unaligned_S512_D64_Hkv2": timed(*odd),
         "families": {name: dict(timed(*qkv, window=window), shape=(
@@ -1496,6 +1585,14 @@ def main() -> None:
     for name, text in logs.items():
         for fn, regs, spills in ptxas_usage(text):
             log(f"[build] {name}: {fn}: {regs}; {spills}")
+    # the bf16 flash kernels on the tensor cores, float32's off them
+    mma = sass_mma(torch, build.library_path("flash_attention"))
+    log(f"[build] flash_attention tensor-core instructions a function "
+        f"(cuobjdump -sass): {json.dumps(mma)}")
+    tc = {f: n for f, n in mma.items() if "flash_attention_kernel_mma" in f}
+    if not tc or not all(tc.values()) or any(n for f, n in mma.items() if f not in tc):
+        fail(f"flash_attention: HMMA expected in every bf16 tensor-core kernel and "
+             f"nowhere else: {mma}")
     dryrun_procs = start_dryrun()  # host only, alongside the card's phases
 
     # the serving configuration of phase 3 (and the kernel shapes it gives)

@@ -30,11 +30,15 @@
 // launch, DRAM, one counter, and the tail below, whose instructions a
 // decode step finds evicted from L2 (the expert products stream GBs
 // between two MoE layers); at T = 4096, d = 2048, E = 64 the 1.07
-// GFLOP of float32 FMAs, 16 us at 67 TFLOP/s.
+// GFLOP of float32 FMAs, 16 us at 67 TFLOP/s.  With several token tiles
+// (prefill, training, T = 47 and up) what the kernel adds to the
+// product is serial work after it: each tile's top-k and ranks, then the
+// dispatch of all T * k assignments, which one block used to place alone
+// (196,608 of them at T = 32,768); it is now spread over the grid.
 //
 // Design: one grid of (NC chunks of d) x (NT tiles of TM tokens) blocks
 // of 256 threads, planned on the host (route_plan in router_topk.py):
-// about one block an SM, at most 16 chunks a tile.
+// about two blocks an SM, at most 16 chunks a tile.
 //   Phase 1, every block: the partial product of its token tile over its
 //   chunk of d, in k-tiles of BK columns (up to 256 at a small token
 //   tile, so that a decode batch needs 16 chunks of one k-tile each)
@@ -53,15 +57,22 @@
 //   the lower peers gives the rank (one warp when the tile holds at most
 //   32 assignments; else per-warp counts in shared memory and a scan
 //   over warps give the bases).
-//   One tile (decode): the same block writes counts, aux and the slots.
-//   Several: each tile publishes its ranks, counts and column sums, and
-//   the grid's last block (a second counter) scans the tiles' counts per
-//   expert into bases, sums the column sums in tile order for aux, and
-//   places every assignment.  Up to kStagedCounts tiles × experts it
-//   stages the counts and sums in shared memory first; past that (T >
-//   16,384 tokens at E = 64) it scans them where they lie, in the global
-//   scratch, writing the bases over the counts: no cap on T but the
-//   2^24 assignments.
+//   One tile (decode): the same block writes counts, aux and the slots,
+//   in one launch.
+//   Several tiles: each tile publishes its ranks (into slot), counts and
+//   column sums, by expert ((E, NT) in the scratch), and the grid's last
+//   block (a second counter) only scans: a warp an expert, whose column
+//   over the tiles is four warp-wide prefix sums a round of 128 tiles,
+//   with a carry; the tiles' bases go over their counts, the totals to
+//   counts, and the column sums, summed in a fixed order, to aux.  It
+//   stages the counts and sums in the shared memory phase 1 is done with
+//   where they fit there (T = 2048 at E = 64), else scans them where they
+//   lie: no extra shared memory for any block, no cap on T but the 2^24
+//   assignments.  A second launch of NT blocks (moe_route_kernel_place)
+//   then places each tile's assignments at its expert's base + rank,
+//   chained by programmatic dependent launch: every block of the first
+//   lets it start (griddepcontrol.launch_dependents), and its blocks wait
+//   (griddepcontrol.wait) for the first grid's end before they read.
 //   The tail is one block's serial work, so its code is kept short: a
 //   rolled top-k loop, route_row instantiated per logits a lane, the
 //   paths of several tiles and of more than 32 assignments out of line.
@@ -75,7 +86,6 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxPerLane = 8;  // E <= 256
 constexpr int kMaxK = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kStagedCounts = 1 << 14;  // tiles × experts the last block stages
 
 // One token row, called by a whole warp: softmax over the E logits at x,
 // top-k, renormalise.  Lane l holds logits l, l + 32, ... (PL of them,
@@ -210,8 +220,8 @@ struct RouteArgs {
   int32_t* counts;   // (E)
   float* aux;        // ()
   float* part;       // (NT, NC, TM, Ep) partial products
-  float* colsum;     // (NT, E) column sums of probs
-  int32_t* tcnt;     // (NT, E) the tiles' counts
+  float* colsum;     // (E, NT) the tiles' column sums of probs
+  int32_t* tcnt;     // (E, NT) the tiles' counts, then their bases
   int* counters;     // (NT + 1), zero between launches
   int T, d, E, k, C;
   int TM, NT, NC, DC;  // token tile, tiles, chunks of d, chunk depth
@@ -335,13 +345,14 @@ __device__ __forceinline__ void rank_assignments(const int32_t* ids, int lo,
 // Shared memory of moe_route in 4-byte words, where each region starts:
 // the same on the host (the launch's size) and in the kernel.  Phase 1
 // stages k-tiles (and sums the slices) below lg; phases 2 and 3 use the
-// regions from lg up.
+// regions from lg up, and the grid's last block stages the tiles' counts
+// and sums below lg where they fit there.
 struct Smem {
-  int lg, grp, ids, rk, wc, cs, tc, sb, sf, term, total;
+  int lg, grp, ids, rk, wc, cs, tc, term, total;
 };
 
 __host__ __device__ inline Smem smem_layout(int TM, int Ep, int KS, int BK, int k,
-                                            int E, int NT) {
+                                            int E) {
   const int O = TM * Ep, stage = BK * (TM + 4 + Ep);
   Smem s;
   s.lg = stage > KS * O ? stage : KS * O;  // (TM, Ep) logits, then probs
@@ -351,10 +362,7 @@ __host__ __device__ inline Smem smem_layout(int TM, int Ep, int KS, int BK, int 
   s.wc = s.rk + TM * k;                    // (kWarps, E) per-warp counts
   s.cs = s.wc + kWarps * E;                // (E) column sums of probs
   s.tc = s.cs + E;                         // (E) the tile's counts
-  const int staged = NT > 1 && NT * E <= kStagedCounts ? NT * E : 0;
-  s.sb = s.tc + E;                         // (NT, E) the tiles' counts, then bases
-  s.sf = s.sb + staged;                    // (NT, E) the tiles' column sums
-  s.term = s.sf + staged;                  // (E) aux terms
+  s.term = s.tc + E;                       // (E) aux terms
   s.total = s.term + E;
   return s;
 }
@@ -415,22 +423,24 @@ __device__ __noinline__ void rank_tile(const int32_t* ids, int32_t* rk, int* wc,
   rank_assignments<false>(ids, lo, hi, wc + warp * E, rk, lane);
 }
 
-// Several token tiles: publish this tile's ranks, counts and sums, and
-// count the tile; the grid's last block (the return value) then scans
-// every tile's counts and sums, staged in shared memory (sb, sf) up to
-// kStagedCounts of them, else in the global scratch, and places every
-// assignment.
+// Several token tiles: publish this tile's ranks (into slot), counts and
+// column sums (tiles by expert, (E, NT)), and count the tile; the grid's
+// last block (last_block) then scans the tiles' counts of each expert
+// into the tiles' bases (over the counts) and writes counts and aux.
+// The counts and sums are staged in the stage_words of shared memory at
+// stage (phase 1's, free by now) where they fit, else scanned where they
+// lie in the global scratch.
 __device__ __noinline__ void finish_tiles(const RouteArgs& a, int tile, int n,
                                           const int32_t* rk, const int* tc,
-                                          const float* cs, int* sb, float* sf,
-                                          float* term, bool* last_block) {
-  const int tid = threadIdx.x;
-  const int64_t base = static_cast<int64_t>(tile) * a.E;
+                                          const float* cs, float* stage,
+                                          int stage_words, float* term,
+                                          bool* last_block) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < n; i += kThreads)
     a.slot[static_cast<int64_t>(tile) * a.TM * a.k + i] = rk[i];
   for (int e = tid; e < a.E; e += kThreads) {
-    a.tcnt[base + e] = tc[e];
-    a.colsum[base + e] = cs[e];
+    a.tcnt[static_cast<int64_t>(e) * a.NT + tile] = tc[e];
+    a.colsum[static_cast<int64_t>(e) * a.NT + tile] = cs[e];
   }
   __syncthreads();
   if (tid == 0) {
@@ -442,9 +452,11 @@ __device__ __noinline__ void finish_tiles(const RouteArgs& a, int tile, int n,
   if (!*last_block) return;
 
   const int n2 = a.NT * a.E;
-  int32_t* cnt = a.tcnt;  // the tiles' counts, then bases
+  const int32_t* cnt = a.tcnt;
   const float* sums = a.colsum;
-  if (n2 <= kStagedCounts) {
+  if (2 * n2 <= stage_words) {
+    int* sb = reinterpret_cast<int*>(stage);
+    float* sf = stage + n2;
     for (int i0 = tid; i0 < n2; i0 += 4 * kThreads) {  // 8 loads in flight
       int c[4];
       float f[4];
@@ -463,34 +475,48 @@ __device__ __noinline__ void finish_tiles(const RouteArgs& a, int tile, int n,
         }
       }
     }
+    __syncthreads();
     cnt = sb;
     sums = sf;
   }
-  __syncthreads();
-  for (int e = tid; e < a.E; e += kThreads) {  // bases: a scan over tiles
-    int run = 0;
-    float ps = 0.f;
-    for (int q0 = 0; q0 < a.NT; q0 += 8) {  // 16 loads in flight
-      int c[8];
-      float f[8];
+  // a warp an expert: its column over the tiles, 128 tiles a round, four
+  // warp-wide prefix sums side by side; the bases go over the counts
+  for (int e = warp; e < a.E; e += kWarps) {
+    const int64_t col = static_cast<int64_t>(e) * a.NT;
+    int carry = 0;
+    float fsum = 0.f;
+    for (int q0 = 0; q0 < a.NT; q0 += 4 * 32) {
+      int c[4], inc[4];
+      float f[4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int q = q0 + j;
-        c[j] = q < a.NT ? cnt[q * a.E + e] : 0;
-        f[j] = q < a.NT ? sums[q * a.E + e] : 0.f;
+      for (int j = 0; j < 4; ++j) {
+        const int q = q0 + 32 * j + lane;
+        c[j] = q < a.NT ? cnt[col + q] : 0;
+        f[j] = q < a.NT ? sums[col + q] : 0.f;
+        inc[j] = c[j];
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (q0 + j < a.NT) {
-          cnt[(q0 + j) * a.E + e] = run;
-          run += c[j];
-          ps += f[j];
+      for (int o = 1; o < 32; o <<= 1)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int up = __shfl_up_sync(kFull, inc[j], o);
+          if (lane >= o) inc[j] += up;
         }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q = q0 + 32 * j + lane;
+        if (q < a.NT) a.tcnt[col + q] = carry + inc[j] - c[j];
+        carry += __shfl_sync(kFull, inc[j], 31);
+        fsum += f[j];
       }
     }
-    a.counts[e] = run;
-    term[e] = (ps / static_cast<float>(a.T)) *
-              (static_cast<float>(run) / static_cast<float>(a.T * a.k));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) fsum += __shfl_xor_sync(kFull, fsum, o);
+    if (lane == 0) {
+      a.counts[e] = carry;
+      term[e] = (fsum / static_cast<float>(a.T)) *
+                (static_cast<float>(carry) / static_cast<float>(a.T * a.k));
+    }
   }
   __syncthreads();
   if (tid == 0) {
@@ -498,14 +524,28 @@ __device__ __noinline__ void finish_tiles(const RouteArgs& a, int tile, int n,
     for (int e = 0; e < a.E; ++e) s += term[e];
     *a.aux = static_cast<float>(a.E) * s;
   }
-  const int N = a.T * a.k, drop = a.E * a.C;
-#pragma unroll 4
-  for (int i = tid; i < N; i += kThreads) {
-    const int e = a.idx[i];
-    place(a, i, e, a.slot[i] + cnt[i / a.k / a.TM * a.E + e], drop);
+}
+
+// The placement of several tiles, launched after moe_route_kernel with
+// programmatic stream serialization: block b takes tile b and places
+// each of its assignments at its expert's base in the tile + its rank.
+// Named under moe_route_kernel, so that a profile counts it with
+// moe_route.
+__global__ void __launch_bounds__(kThreads)
+    moe_route_kernel_place(const __grid_constant__ RouteArgs a) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int tile = blockIdx.x;
+  const int i0 = tile * a.TM * a.k, n = min(a.TM, a.T - tile * a.TM) * a.k;
+  const int drop = a.E * a.C;
+  for (int i = i0 + threadIdx.x; i < i0 + n; i += kThreads) {
+    const int e = a.idx[i], rank = a.slot[i];
+    place(a, i, e, rank + a.tcnt[static_cast<int64_t>(e) * a.NT + tile], drop);
   }
 }
 
+// kTiles: several token tiles (NT > 1), which the placement launch
+// follows; a decode batch (one tile) runs the instantiation without them.
+template <bool kTiles>
 __global__ void __launch_bounds__(kThreads)
     moe_route_kernel(const __grid_constant__ RouteArgs a) {
   extern __shared__ float4 smem4[];
@@ -518,6 +558,9 @@ __global__ void __launch_bounds__(kThreads)
   const int Ep = a.NE * kR, XS = a.TM + 4, O = a.TM * Ep;
   const int lbk4 = __ffs(a.BK / 4) - 1, lne = __ffs(a.NE) - 1;
 
+  // several tiles: the placement launch may start as soon as every block
+  // has begun; its blocks wait (griddepcontrol.wait) for this grid's end
+  if constexpr (kTiles) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   // src starts at -1; each block sets a share, all before any is placed
   {
     const int nb = gridDim.x * gridDim.y, b = tile * gridDim.x + chunk;
@@ -587,7 +630,7 @@ __global__ void __launch_bounds__(kThreads)
   // ---- phase 2: this tile's logits, top-k and ranks ----
   // Plain loads from here on: the acquire above orders them after every
   // release, and a plain load can be in flight with others.
-  const Smem L = smem_layout(a.TM, Ep, a.KS, a.BK, a.k, a.E, a.NT);
+  const Smem L = smem_layout(a.TM, Ep, a.KS, a.BK, a.k, a.E);
   float* lg = sm + L.lg;
   float* grp = sm + L.grp;
   int32_t* ids = smi + L.ids;
@@ -646,7 +689,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   // one tile: counts, aux and slots from shared memory
-  if (a.NT == 1) {
+  if constexpr (!kTiles) {
     for (int e = tid; e < a.E; e += kThreads) {
       a.counts[e] = tc[e];
       term[e] = (cs[e] / static_cast<float>(a.T)) *
@@ -660,9 +703,9 @@ __global__ void __launch_bounds__(kThreads)
     }
     const int drop = a.E * a.C;
     for (int i = tid; i < n; i += kThreads) place(a, i, ids[i], rk[i], drop);
-    return;
+  } else {
+    finish_tiles(a, tile, n, rk, tc, cs, sm, L.lg, term, &last_block);
   }
-  finish_tiles(a, tile, n, rk, tc, cs, smi + L.sb, sm + L.sf, term, &last_block);
 }
 
 }  // namespace
@@ -734,22 +777,40 @@ extern "C" int moe_route(const void* x, const void* w, void* logits,
   a.KS = KS;
   a.vec_x = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   a.vec_w = E % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const size_t bytes = sizeof(float) * smem_layout(TM, Ep, KS, BK, k, E, NT).total;
+  const size_t bytes = sizeof(float) * smem_layout(TM, Ep, KS, BK, k, E).total;
   // above 48 KB of dynamic shared memory a kernel opts in, on each device
-  static size_t opted[kMaxDevices] = {};
+  static size_t opted[2][kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (bytes > (48u << 10) && bytes > opted[dev]) {
-    err = cudaFuncSetAttribute(moe_route_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const bool tiles = NT > 1;
+  auto kernel = tiles ? moe_route_kernel<true> : moe_route_kernel<false>;
+  if (bytes > (48u << 10) && bytes > opted[tiles][dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted[dev] = bytes;
+    opted[tiles][dev] = bytes;
   }
   const dim3 grid(NC, NT);
-  moe_route_kernel<<<grid, kThreads, bytes,
-                     static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<grid, kThreads, bytes, st>>>(a);
+  if (NT == 1) return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // several tiles: the placement, a block a tile, chained by programmatic
+  // dependent launch (its blocks may be scheduled once every block of the
+  // first has begun, and wait for the first grid's end)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(NT);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, moe_route_kernel_place, a);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }

@@ -8,14 +8,26 @@ or before ``i - window``.  The result is ``(B, H, S, D)`` in q's type.
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu`` on the
 current CUDA stream and counts its launches in
-``flash_attention.launches``.  The kernel keeps float32 register tiles
-of the scores and the output, streams 64-key tiles through a two-stage
-cp.async ring, and picks its query tile (64, 32 or 16 rows) from the
-grid's size against the card's SM count (:func:`build.sm_count`), so a
-short prompt still spreads over the card.  It takes the batch, head and
-position strides of q, k and v, so a transposed view such as the
-engine's ``(B, S, H, D) → (B, H, S, D)`` prefill projections is read in
-place with no copy; only the last dimension must be contiguous.
+``flash_attention.launches``.  It takes the batch, head and position
+strides of q, k and v, so a transposed view such as the engine's ``(B,
+S, H, D) → (B, H, S, D)`` prefill projections is read in place with no
+copy; only the last dimension must be contiguous.  The kernel has two
+paths (:func:`kernel_path` says which a call takes):
+
+* **bfloat16 on the tensor cores** (rows 16-byte aligned, D a multiple
+  of 8, every stride of a dimension longer than 1 non-zero): ``mma.sync``
+  m16n8k16 for q·kᵀ and for p·V, float32 sums; p stays in registers,
+  split into three bf16 parts that hold its 24 bits, so p·V differs from
+  float32 only in the order of its sums; blocks of 16-row warps (and, on
+  a grid that leaves SMs idle, groups of them over alternate key tiles);
+  q, K and V tiles loaded by TMA from tensor maps the launch encodes.
+* **float32, and bf16 rows off that alignment, on the CUDA cores**:
+  float32 register tiles of the scores and the output, 64-key tiles
+  through a two-stage ring (element loads off alignment); the query
+  tile (64, 32 or 16 rows) is picked from the grid's size against the
+  card's SM count (:func:`build.sm_count`), so a short prompt still
+  spreads over the card.
+
 :func:`flash_attention_plain` (a port of ``repro/kernels/ref.py:12-37``)
 is what ``kernels.ops`` runs for a CPU tensor.
 """
@@ -51,6 +63,25 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if Bk != B or Dk != D or H % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}")
+
+
+def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The path of ``csrc/flash_attention.cu`` that a call on these
+    tensors takes, by the rule of its ``launch``: ``"tensor cores"``
+    (bfloat16 rows 16-byte aligned), ``"cuda cores"`` (float32 rows
+    16-byte aligned) or ``"cuda cores, element loads"``."""
+    item = q.element_size()
+
+    def aligned(t):
+        return t.data_ptr() % 16 == 0 and all(s * item % 16 == 0 for s in t.stride()[:3])
+
+    vec = q.shape[3] * item % 16 == 0 and all(aligned(t) for t in (q, k, v))
+    if not vec:
+        return "cuda cores, element loads"
+    # the tensor maps step every dimension longer than 1 by a non-zero stride
+    stepped = all(n == 1 or st != 0 for t in (q, k, v)
+                  for n, st in zip(t.shape[:3], t.stride()[:3]))
+    return "tensor cores" if q.dtype == torch.bfloat16 and stepped else "cuda cores"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -146,8 +146,16 @@ def route_plan(T: int, d: int, E: int, sms: int) -> Dict[str, int]:
     slices of threads split each k-tile of ``BK`` columns, as deep as a
     thread's staging registers allow (up to 256) so that a short batch
     needs few chunks.  Each tile is split over ``NC`` chunks of ``DC``
-    columns of ``d``: about one block an SM, at most 16 partials a tile,
-    and no more partials than one block sums in about 64 KB.
+    columns of ``d``: about two blocks an SM (so that an SM has a second
+    block's warps to run while one waits on its loads), at most 16
+    partials a tile, and no more partials than one block sums in about
+    64 KB.
+
+    With one tile (``NT == 1``, decode) the launch finishes in place.
+    With several, a second launch of ``NT`` blocks places the
+    assignments, one block a tile, after the first grid's last block has
+    scanned the tiles' counts into bases; it is chained by programmatic
+    dependent launch.
     """
     NE = _pow2(math.ceil(E / 4))
     NM = min(16 if T >= 1024 else 2, _pow2(math.ceil(T / 4)), THREADS // NE)
@@ -158,7 +166,7 @@ def route_plan(T: int, d: int, E: int, sms: int) -> Dict[str, int]:
     while BK < BK_MAX and TM * 2 * BK <= 2048 and 2 * BK * Ep <= 8192:
         BK *= 2
     ktiles = math.ceil(d / BK)
-    NC = max(1, min(ktiles, sms // NT, 16384 // (TM * Ep), MAX_CHUNKS))
+    NC = max(1, min(ktiles, 2 * sms // NT, 16384 // (TM * Ep), MAX_CHUNKS))
     DC = math.ceil(ktiles / NC) * BK
     NC = math.ceil(d / DC)
     return dict(TM=TM, NT=NT, NC=NC, DC=DC, BK=BK, NE=NE, NM=NM, KS=KS)

@@ -240,6 +240,59 @@ def test_flash_attention_on_transposed_views_is_prefill_attention():
         assert_close(got.transpose(1, 2), want.numpy(), "float32")
 
 
+def test_flash_p_split_keeps_float32_precision():
+    """p.V on the tensor cores with bf16 operands: p split into
+    ``bf16(p) + bf16(p - bf16(p))`` against bf16 V, float32 sums, stays
+    within 2^-17 of sum |p||v| of the float32 product; one rounding of p
+    to bf16 does not.  The kernel takes a third part, bf16 of what is
+    left: the three hold a softmax's float32 p exactly (3 x 8 bits of
+    its 24), so p.V differs from the float32 product only in the order
+    of its sums."""
+    rng = np.random.default_rng(13)
+    s = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32) * 3.0)
+    p = torch.softmax(s, dim=-1)
+    v = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)).bfloat16().float()
+    want = p @ v
+    hi = p.bfloat16().float()
+    mid = (p - hi).bfloat16().float()
+    bound = 2.0 ** -17 * (p.abs() @ v.abs())
+    assert bool(((hi @ v + mid @ v) - want).abs().le(bound).all())
+    assert not bool(((hi @ v) - want).abs().le(bound).all())
+    lo = (p - hi - mid).bfloat16().float()
+    assert torch.equal(hi.double() + mid.double() + lo.double(), p.double())
+    assert not torch.equal(hi.double() + mid.double(), p.double())
+
+
+@pytest.mark.parametrize("dtype,offset,D,want", [
+    ("bfloat16", 0, 128, "tensor cores"), ("bfloat16", 0, 80, "tensor cores"),
+    ("bfloat16", 1, 64, "cuda cores, element loads"),
+    ("bfloat16", 0, 20, "cuda cores, element loads"),
+    ("float32", 0, 64, "cuda cores"), ("float32", 1, 64, "cuda cores, element loads")])
+def test_flash_kernel_path(dtype, offset, D, want):
+    """Which path of the kernel a call takes, by its launch rule: bf16
+    rows 16-byte aligned take the tensor cores; ``offset`` shifts every
+    row by one element off that alignment."""
+    from repro_torch.kernels.flash_attention import kernel_path
+
+    def rows(h):
+        flat = torch.zeros(offset + 1 * h * 40 * D, dtype=TDT[dtype])
+        return flat[offset:].view(1, h, 40, D)
+
+    assert kernel_path(rows(8), rows(2), rows(2)) == want
+
+
+def test_flash_kernel_path_needs_stepped_dimensions():
+    """A bf16 operand broadcast over heads (stride 0, as ``expand`` gives)
+    has no tensor map: it takes the CUDA cores; one KV head is fine."""
+    from repro_torch.kernels.flash_attention import kernel_path
+
+    q = torch.zeros((1, 8, 40, 64), dtype=torch.bfloat16)
+    one = torch.zeros((1, 1, 40, 64), dtype=torch.bfloat16)
+    assert kernel_path(q, one, one) == "tensor cores"
+    wide = one.expand(1, 2, 40, 64)
+    assert kernel_path(q, wide, wide) == "cuda cores"
+
+
 # --------------------------------------------------------------------- #
 def assert_router_equal(got, want):
     for g, w, name in zip(got, want, ("probs", "vals")):
@@ -453,12 +506,14 @@ def test_paged_attention_split_plan_covers_every_page_once(B, Hkv, G, MP):
 # The fused route's grid (route_plan) and its split of the capacity
 # dispatch over token tiles: each tile's last block ranks the tile's
 # assignments per expert (8 warps, each a run of 32-assignment chunks,
-# and a scan over warps), and the grid's last block adds each tile's
-# base, the scan of the tiles' counts.  Held here against the plain
-# version's stable-argsort slots.
+# and a scan over warps), the grid's last block scans the tiles' counts
+# into bases, and a second launch places each tile's assignments at
+# base + rank.  Held here against the plain version's stable-argsort
+# slots.
 # --------------------------------------------------------------------- #
 ROUTE_SHAPES = [(8, 4096, 16, 2), (47, 4096, 16, 2), (4096, 2048, 64, 6), (5, 64, 4, 2),
-                (1, 32, 1, 1), (300, 100, 256, 8), (1023, 33, 8, 2), (2000, 130, 6, 3)]
+                (1, 32, 1, 1), (300, 100, 256, 8), (1023, 33, 8, 2), (2000, 130, 6, 3),
+                (20000, 2048, 64, 6)]  # past 16,384 tokens: 313 tiles
 
 
 @pytest.mark.parametrize("T,d,E,k", ROUTE_SHAPES)
@@ -473,7 +528,7 @@ def test_route_plan_covers_tokens_and_width(T, d, E, k):
     # a k-tile fits the staging registers: 2 and 8 float4 of x and w a thread
     assert BK % rt.BK_MIN == 0 and TM * BK <= 2048 and BK * 4 * NE <= 8192
     assert DC % BK == 0 and (NC - 1) * DC < d <= NC * DC  # no empty chunk
-    assert NC <= rt.MAX_CHUNKS and (NT * NC <= 132 or NC == 1)
+    assert NC <= rt.MAX_CHUNKS and (NT * NC <= 2 * 132 or NC == 1)
 
 
 
@@ -508,11 +563,15 @@ def test_glue_plan_covers_rows_and_vectors(rows, n, k):
         assert (bx, by, gx, gy) == (64, 1, 64, 8)
 
 def tile_ranked_slots(idx, TM, E, C, warps=8):
-    """The kernel's phases 2 and 3 over ``idx (T, k)`` in numpy."""
+    """The kernel's placement over ``idx (T, k)`` in numpy: each tile's
+    ranks (its last block), the grid's last block's scan of the tiles'
+    counts, (E, NT), into each tile's bases (a warp an expert, 128 tiles
+    a round: four warp-wide prefixes and a carry), then each tile's own
+    placement at base + rank (the second launch, a block a tile)."""
     T, k = idx.shape
     NT = -(-T // TM)
     rank = np.empty(T * k, np.int64)
-    tcnt = np.zeros((NT, E), np.int64)
+    tcnt = np.zeros((E, NT), np.int64)
     for tile in range(NT):
         ids = idx[tile * TM:(tile + 1) * TM].reshape(-1)
         n = ids.size
@@ -521,7 +580,7 @@ def tile_ranked_slots(idx, TM, E, C, warps=8):
         for w in range(warps):  # counts of each warp's run
             lo, hi = min(n, w * seg), min(n, w * seg + seg)
             wc[w] = np.bincount(ids[lo:hi], minlength=E)
-        tcnt[tile] = wc.sum(axis=0)
+        tcnt[:, tile] = wc.sum(axis=0)
         wc = np.cumsum(wc, axis=0) - wc  # exclusive scan over warps
         for w in range(warps):
             lo, hi = min(n, w * seg), min(n, w * seg + seg)
@@ -530,14 +589,29 @@ def tile_ranked_slots(idx, TM, E, C, warps=8):
                 lower = (e[None, :] == e[:, None]) & np.tri(e.size, k=-1, dtype=bool)
                 rank[tile * TM * k + base + np.arange(e.size)] = wc[w, e] + lower.sum(axis=1)
                 wc[w] += np.bincount(e, minlength=E)
-    base = np.cumsum(tcnt, axis=0) - tcnt  # exclusive scan over tiles
-    e = idx.reshape(-1)
-    pos = rank + base[np.arange(T * k) // k // TM, e]
-    slot = np.where(pos < C, e * C + pos, E * C)
+    bases = np.empty_like(tcnt)
+    counts = np.empty(E, np.int64)
+    for e in range(E):  # the grid's last block: a warp an expert
+        carry = 0
+        for q0 in range(0, NT, 128):
+            q = q0 + np.arange(128).reshape(4, 32)
+            c = np.where(q < NT, tcnt[e, np.minimum(q, NT - 1)], 0)
+            inc = np.cumsum(c, axis=1)  # four warp-wide inclusive prefixes
+            for j in range(4):
+                live = q[j] < NT
+                bases[e, q[j][live]] = (carry + inc[j] - c[j])[live]
+                carry += inc[j, 31]
+        counts[e] = carry
+    slot = np.empty(T * k, np.int64)
     src = np.full(E * C, -1, np.int64)
-    keep = pos < C
-    src[slot[keep]] = (np.arange(T * k) // k)[keep]
-    return slot, src, tcnt.sum(axis=0)
+    for tile in range(NT):  # the placement: each tile its own assignments
+        i = np.arange(tile * TM * k, min(T, (tile + 1) * TM) * k)
+        e = idx.reshape(-1)[i]
+        pos = rank[i] + bases[e, tile]
+        slot[i] = np.where(pos < C, e * C + pos, E * C)
+        keep = pos < C
+        src[slot[i][keep]] = i[keep] // k
+    return slot, src, counts
 
 
 @pytest.mark.parametrize("T,d,E,k", ROUTE_SHAPES)
