@@ -46,12 +46,15 @@ into ``build/``) and runs these phases:
    the engine's transposed views), S=512, D=64, a ragged S=513, phi3.5's
    heads at S=2048, widths off its templates (D=80, 96) and rows off
    16-byte alignment (the element-by-element loader); plus the
-   small sweeps of ``tests/test_kernels.py``; in bfloat16 on the tensor
-   cores (which path each case took is printed; ``cuobjdump -sass`` of
-   the build must show HMMA in every bf16 tensor-core kernel and in no
-   other), the bf16 serve prefill (phi3.5-moe's heads at S=47 through
-   the views), phi3.5's heads at S=2048, D=96, D=256 with a window, each
-   timed beside SDPA; ``moe_route`` also at both routers' training
+   small sweeps of ``tests/test_kernels.py``; in bfloat16 on the
+   warpgroup tensor cores (which path each case took, and each case's
+   share of outputs that round away from the plain version, is printed;
+   ``cuobjdump -sass`` of the build must show HGMMA in every function of
+   ``flash_attention_kernel_wgmma`` and no HMMA or HGMMA in any other),
+   the bf16 serve prefill (phi3.5-moe's heads at S=47 through the views),
+   the long bf16 serve's prefill (S=2047 through the views), phi3.5's
+   heads at S=2048, D=96, D=256 with a window, each timed beside SDPA;
+   ``moe_route`` also at both routers' training
    T=2048 (several token tiles, the second launch places).  The five other families
    the engine serves (``FAMILIES``) at their own shapes:
    ``paged_attention`` at each one's decode over its serve store
@@ -222,7 +225,12 @@ within ``DVALS_REL``), ``paged_attention`` with a bfloat16 q over the
 engine's float32 store, ``moe_route`` at deepseek's router for T =
 16,448 and 32,768 (past the tile counts its last block stages), each
 timed; phi3.5-moe cut to 8 layers served in bfloat16 (placement equal
-to the float32 run's), deepseek-v2-lite's 27 layers through
+to the float32 run's), then on the same weights two prompts of 2048
+tokens (``LONG_BF16``: flash attention once a layer a prompt, all on
+the ``wgmma`` path at S = 2047, the prefill seconds printed), each
+first token equal to a twin run's whose prefill takes the plain flash
+attention, or parted only at a bfloat16 near tie (``near_tie_split``);
+deepseek-v2-lite's 27 layers through
 ``decode_step`` (greedy, and the drop-free forward against decode
 within ``BF16_FWD_DECODE_REL``), phi3.5-moe cut to 2 layers through
 ``train_loop`` in bfloat16 and then float32 (losses side by side), and
@@ -353,9 +361,10 @@ def ptxas_usage(text: str):
 
 
 def sass_mma(torch, lib_path) -> dict:
-    """``{function: tensor-core instructions}`` of a built library: the
-    ``HMMA`` and ``HGMMA`` lines of each function in ``cuobjdump -sass``,
-    names demangled where ``c++filt`` is found."""
+    """``{function: {"HMMA": n, "HGMMA": m}}`` of a built library: the
+    tensor-core instructions of each function in ``cuobjdump -sass``
+    (``mma.sync`` and ``wgmma``), names demangled where ``c++filt`` is
+    found."""
     import shutil
 
     from repro_torch.kernels import build
@@ -367,9 +376,11 @@ def sass_mma(torch, lib_path) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[fn][op] += 1
     if counts and shutil.which("c++filt"):
         names = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True,
                                text=True, timeout=60).stdout.splitlines()
@@ -1462,11 +1473,12 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
             f"D={a.head_dim} window={window} (views)", *wqkv, True, window, "float32")
         fam_cases[f"{wname} windowed run S={wS} window={window}"] = (wqkv, window)
 
-    # bfloat16 on the tensor cores, on a generator of their own (the
-    # float32 cases above keep their inputs): the bf16 serve run's prefill
-    # (phi3.5-moe's heads at S=47 through the engine's views), phi3.5's
-    # heads at S=2048, widths 96 and 256, and rows off 16-byte alignment
-    # (the CUDA-core path); kernel_bench's S=512, S=513 and D=80 above
+    # bfloat16 on the warpgroup tensor cores, on a generator of their own
+    # (the float32 cases above keep their inputs): the bf16 serve run's
+    # prefill (phi3.5-moe's heads at S=47 through the engine's views), the
+    # long bf16 serve's (S=2047), phi3.5's heads at S=2048, widths 96 and
+    # 256, and rows off 16-byte alignment (the CUDA-core path);
+    # kernel_bench's S=512, S=513 and D=80 above
     gen16 = torch.Generator(device="cuda").manual_seed(1313)
 
     def rand16(*shape):
@@ -1479,6 +1491,12 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
     long16 = (rand16(1, 32, 2048, 128), rand16(1, 8, 2048, 128), rand16(1, 8, 2048, 128))
     run("phi3.5-moe heads bf16 B=1 H=32 Hkv=8 S=2048 D=128", *long16, True, None,
         "bfloat16")
+    S_long = LONG_BF16["prompt_len"] - 1  # the engine prefills prompt[:-1]
+    serve_long16 = (rand16(1, S_long, 32, 128).transpose(1, 2),
+                    rand16(1, S_long, 8, 128).transpose(1, 2),
+                    rand16(1, S_long, 8, 128).transpose(1, 2))
+    run(f"phi3.5-moe bf16 long serve prefill H=32 Hkv=8 S={S_long} D=128 (views)",
+        *serve_long16, True, None, "bfloat16")
     run("bf16 B=1 H=8 Hkv=2 S=512 D=96", rand16(1, 8, 512, 96), rand16(1, 2, 512, 96),
         rand16(1, 2, 512, 96), True, None, "bfloat16")
     run("bf16 B=1 H=8 Hkv=4 S=300 D=256 window=128", rand16(1, 8, 300, 256),
@@ -1488,9 +1506,14 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
     run("bf16 unaligned rows B=1 H=8 Hkv=2 S=512 D=64", *odd16, True, None, "bfloat16")
     paths = {f"{c['case']} {c['dtype']}": c["path"] for c in checks}
     log(f"[kernels] flash_attention paths {json.dumps(paths)}")
-    if not all(c["path"] == "tensor cores" for c in checks
+    for c in checks:
+        if c["dtype"] == "bfloat16":
+            log(f"[kernels] flash_attention bf16 {c['case']} ({c['path']}): "
+                f"{c['differ']} of the outputs round away from the plain version, "
+                f"max_abs_err {c['max_abs_err']}")
+    if not all(c["path"] == "wgmma" for c in checks
                if c["dtype"] == "bfloat16" and "unaligned" not in c["case"]):
-        fails.append("flash_attention: a 16-byte aligned bf16 case missed the tensor cores")
+        fails.append("flash_attention: a 16-byte aligned bf16 case missed the wgmma path")
 
     def timed(q, k, v, iters=50, window=None):
         nbytes, flops = flash_work(torch, q, k, True, window)
@@ -1536,6 +1559,7 @@ def check_flash_attention(torch, gen, flush, fails, families, windowed):
         "bf16_S512_D64_Hkv2": timed(*kb16),
         "bf16_serve_prefill_S47_D128_Hkv8_views": timed(*serve16),
         "bf16_phi3_5_heads_S2048_D128_Hkv8": timed(*long16, iters=10),
+        f"bf16_long_serve_prefill_S{S_long}_D128_Hkv8_views": timed(*serve_long16, iters=10),
         "bf16_general_path_unaligned_S512_D64_Hkv2": timed(*odd16),
         "padded_S512_D96_Hkv2": timed(*d96),
         "general_path_unaligned_S512_D64_Hkv2": timed(*odd),
@@ -1585,14 +1609,16 @@ def main() -> None:
     for name, text in logs.items():
         for fn, regs, spills in ptxas_usage(text):
             log(f"[build] {name}: {fn}: {regs}; {spills}")
-    # the bf16 flash kernels on the tensor cores, float32's off them
+    # the bf16 flash kernels on wgmma, float32's off the tensor cores
     mma = sass_mma(torch, build.library_path("flash_attention"))
     log(f"[build] flash_attention tensor-core instructions a function "
         f"(cuobjdump -sass): {json.dumps(mma)}")
-    tc = {f: n for f, n in mma.items() if "flash_attention_kernel_mma" in f}
-    if not tc or not all(tc.values()) or any(n for f, n in mma.items() if f not in tc):
-        fail(f"flash_attention: HMMA expected in every bf16 tensor-core kernel and "
-             f"nowhere else: {mma}")
+    tc = {f: n for f, n in mma.items() if "flash_attention_kernel_wgmma" in f}
+    if (not tc or not all(n["HGMMA"] for n in tc.values())
+            or any(n["HMMA"] for n in mma.values())
+            or any(n["HGMMA"] for f, n in mma.items() if f not in tc)):
+        fail(f"flash_attention: HGMMA expected in every function of "
+             f"flash_attention_kernel_wgmma, and no HMMA or HGMMA elsewhere: {mma}")
     dryrun_procs = start_dryrun()  # host only, alongside the card's phases
 
     # the serving configuration of phase 3 (and the kernel shapes it gives)
@@ -1781,12 +1807,12 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def serve_phase(torch, name, cfg, ecfg, dtype=None, tag="serve"):
+def serve_phase(torch, name, cfg, ecfg, dtype=None, tag="serve", params=None):
     """Serve ``cfg`` at full width on the card with launch counts set to 0
     just before and read just after; check the counts, tiering, tokens
     and the pool's invariants; then trace a short decode.  ``dtype``: the
-    weights' type (default float32).  Frees the weights before it
-    returns."""
+    weights' type (default float32); ``params``: the weights, else built
+    here from seed 0 and freed before it returns."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import check_fits, profile_decode, serve
     from repro_torch.models.model import init_params, param_bytes
@@ -1796,12 +1822,15 @@ def serve_phase(torch, name, cfg, ecfg, dtype=None, tag="serve"):
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     dtype = dtype or torch.float32
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda", dtype=dtype)
+    built = params is None
+    if built:
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda", dtype=dtype)
     torch.cuda.synchronize()
     log(f"[{tag}] {name} full width: {cfg.n_layers} layers, d={cfg.d_model}, "
         f"params {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G "
-        f"{str(dtype).replace('torch.', '')}, built in {time.perf_counter() - t0:.1f} s")
+        f"{str(dtype).replace('torch.', '')}, "
+        + (f"built in {time.perf_counter() - t0:.1f} s" if built else "the caller's"))
     ops.reset_launch_counts()
     res = serve(cfg, params, ecfg, requests=requests, prompt_len=prompt_len,
                 max_new=max_new, seed=0, device="cuda")
@@ -4006,6 +4035,12 @@ def ssm_phase(torch, smi):
 BF16_FWD_DECODE_REL = 0.5
 BF16_ROUTE_T = (16384 + 64, 32768)  # past the 16,384 tokens the route's last block stages
 BF16_TRAIN_STEPS = 3
+# the long bf16 serve: phi3.5-moe at MOE_LAYERS, 2 prompts of 2048 tokens
+# (the engine prefills prompt[:-1]: flash attention at S = 2047), 4 new
+# tokens each, in a pool of 16-token pages that holds them (129 pages a
+# request: 96 fast and 192 slow frames), top-4
+LONG_BF16 = {"requests": 2, "prompt_len": 2048, "max_new": 4, "num_fast": 96,
+             "num_slow": 192, "topk_pages": 4}
 # name: (T, d, E, k, C) of the glue kernels' bfloat16 checks; tokens drop
 BF16_GLUE = {"phi3.5-moe decode T=8": (8, 4096, 16, 2, 1),
              "phi3.5-moe prefill T=47": (47, 4096, 16, 2, 7),
@@ -4152,11 +4187,108 @@ def bf16_routes(torch, gen, flush, fails):
     return out
 
 
+@contextlib.contextmanager
+def plain_flash_prefill(torch):
+    """While the block runs, the engine's prefill attention
+    (``kernels.ops.flash_attention``) takes the plain version, and every
+    ``ServingEngine._logits`` call's last-position rows are kept (float32,
+    on the CPU, in call order): a twin run for ``long_bf16_serve``.
+    Patched here, not in the package."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine
+
+    rows, flash, logits = [], ops.flash_attention, ServingEngine._logits
+
+    def plain(q, k, v, causal=True, window=None, scale=None, impl="auto"):
+        return flash(q, k, v, causal=causal, window=window, scale=scale, impl="ref")
+
+    def recording(self, x, dtype=None):
+        lg = logits(self, x, dtype)
+        rows.extend(lg[:, -1].float().cpu().unbind(0))
+        return lg
+
+    ops.flash_attention, ServingEngine._logits = plain, recording
+    try:
+        yield rows
+    finally:
+        ops.flash_attention, ServingEngine._logits = flash, logits
+
+
+def long_bf16_serve(torch, cfg, params):
+    """The long bf16 serve (``LONG_BF16``) through ``launch.serve.serve``
+    with launch counts set to 0 just before and read just after: exact
+    counts, flash attention once a layer a prompt and every call on the
+    ``wgmma`` path at (1, 32, 2047, 128), the prefill seconds printed.
+    Then its twin, the same requests with the prefill's flash attention on
+    its plain version (``plain_flash_prefill``): each request's first
+    token equal, or parted only at a bfloat16 near tie of the twin's
+    logits (``near_tie_split``) → the launch counts."""
+    from repro_torch.core import TppConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving import EngineConfig
+
+    lb = LONG_BF16
+    R, P, N = lb["requests"], lb["prompt_len"], lb["max_new"]
+    ecfg = EngineConfig(page_size=16, num_fast=lb["num_fast"], num_slow=lb["num_slow"],
+                        topk_pages=lb["topk_pages"], max_seqs=8,
+                        tpp=TppConfig(demote_budget=64, promote_budget=32))
+    L = cfg.n_layers
+    calls, entry = [], ops.flash_attention
+
+    def recording(q, k, v, **kw):  # the engine's prefill calls ops.flash_attention
+        calls.append((fa.kernel_path(q, k, v), tuple(q.shape)))
+        return entry(q, k, v, **kw)
+
+    ops.reset_launch_counts()
+    ops.flash_attention = recording
+    try:
+        res = serve(cfg, params, ecfg, requests=R, prompt_len=P, max_new=N, seed=0,
+                    device="cuda")
+    finally:
+        ops.flash_attention = entry
+    launches = ops.launch_counts()
+    steps, kv = res["steps"], res["engine"].kv
+    check_launches(f"{MOE_ARCH} long bf16 serve", launches, kv, L, steps, R, L * (steps + R))
+    want = {("wgmma", (1, cfg.all_specs()[0].attn.n_heads, P - 1,
+                       cfg.all_specs()[0].attn.head_dim))}
+    if launches["flash_attention"] != L * R or set(calls) != want or len(calls) != L * R:
+        fail(f"{MOE_ARCH} long bf16 serve: flash attention launched "
+             f"{launches['flash_attention']} times, calls {sorted(set(calls))}, expected "
+             f"{L * R} on {want}")
+    toks = [x for out in res["tokens"].values() for x in out]
+    if len(toks) != R * N or not all(0 <= x < cfg.vocab for x in toks):
+        fail(f"{MOE_ARCH} long bf16 serve produced malformed tokens")
+    kv.pool.check_invariants()
+    log(f"[bf16] {MOE_ARCH} long serve: {R} prompts of {P} tokens, prefill "
+        f"{res['prefill_s']:.3f} s ({L * R} flash launches on wgmma at S={P - 1}), "
+        f"{res['n_tokens']} tokens in {steps} decode steps, {res['ms_per_step']:.3f} ms/step, "
+        f"{kv.flushes} flushes, stats {json.dumps({k: res['stats'][k] for k in PLACEMENT})}")
+    first = {rid: out[0] for rid, out in res["tokens"].items()}
+    del res, kv
+    gc.collect()
+    with plain_flash_prefill(torch) as rows:
+        twin = serve(cfg, params, ecfg, requests=R, prompt_len=P, max_new=N, seed=0,
+                     device="cuda")
+    twin_first = {rid: out[0] for rid, out in twin["tokens"].items()}
+    split = near_tie_split(torch, {"tokens": [first]}, {"tokens": [twin_first]}, rows,
+                           "batched")
+    log(f"[bf16] {MOE_ARCH} long serve first tokens {json.dumps(first)}; plain-flash twin "
+        f"{json.dumps(twin_first)} (prefill {twin['prefill_s']:.3f} s): "
+        + ("equal" if split is None else f"parted at a bfloat16 near tie {json.dumps(split)}"))
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def bf16_phase(torch, smi, rows, moe_full):
     """The [bf16] phase: the kernels' bfloat16 cases (added to ``rows``)
     and the route at T = 32,768; phi3.5-moe cut to ``MOE_LAYERS`` layers
     served in bfloat16 through the engine (placement held to
-    ``PLACEMENT``); deepseek-v2-lite's 27 layers through ``decode_step``
+    ``PLACEMENT``), then on its weights ``long_bf16_serve``;
+    deepseek-v2-lite's 27 layers through ``decode_step``
     in bfloat16 (greedy, the drop-free forward against decode within
     ``BF16_FWD_DECODE_REL``); phi3.5-moe cut to 2 layers through
     ``train_loop(dtype=bfloat16)``; the seven served archs' smoke
@@ -4195,8 +4327,18 @@ def bf16_phase(torch, smi, rows, moe_full):
                         max_seqs=8, tpp=TppConfig(demote_budget=64, promote_budget=32))
     log(f"[bf16] {MOE_ARCH}: {MOE_LAYERS} of {moe_full.n_layers} layers, "
         f"{param_bytes(moe_cfg) / 2 / 1e9:.1f} GB of bfloat16 weights")
+    t1 = time.perf_counter()
+    params = init_params(moe_cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", dtype=bf)
+    torch.cuda.synchronize()
+    log(f"[bf16] {MOE_ARCH} weights built in {time.perf_counter() - t1:.1f} s")
     launches[f"bf16 serve/{MOE_ARCH}"], _ = serve_phase(torch, MOE_ARCH, moe_cfg, ecfg,
-                                                        dtype=bf, tag="bf16")
+                                                        dtype=bf, tag="bf16", params=params)
+    # the same weights serve two long prompts, and their plain-flash twin
+    launches[f"bf16 long serve/{MOE_ARCH}"] = long_bf16_serve(torch, moe_cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     # deepseek-v2-lite, all 27 layers, through decode_step
     cfg = get_config(DEEPSEEK)
     torch.cuda.reset_peak_memory_stats()

@@ -55,52 +55,80 @@
 //     memory (cp.async's zero fill past D).  DT = 256 runs one stage
 //     (216 KB of shared memory at BQ = 64), the others two.
 //
-// bfloat16 with 16-byte aligned rows (D a multiple of 8): the tensor
-// cores (flash_attention_kernel_mma).  The TPU kernel widens q, k and v
-// to float32 and keeps the scores and p in float32 up to one rounding at
-// the output; here q.k^T is mma.sync m16n8k16 with bf16 operands and
-// float32 sums (the products of two bf16 are exact in float32, so only
-// the order of the sum differs), and p.V splits p into three bf16 parts,
-// bf16(p), bf16 of the rest and bf16 of what is left, three products
-// against the same V fragments summed in float32: 3 x 8 bits hold p's
-// 24, so p is kept whole.  One rounding of p would move each weight by
-// up to 2^-9; two parts keep it to 2^-18, which on the card rounded many
-// times more outputs away from the float32 reference than the CUDA-core
-// path does and split a bf16 serve lifecycle of chip_smoke.py at a near
-// tie.  What bounds the kernel is the tensor cores' issue rate under
-// mma.sync (wgmma's asynchronous 64-row products reach more of the 989
-// TFLOP/s) and, at a short prompt or a grid that leaves SMs idle, the
-// latency of one warp's chain of key tiles.  Design (FlashAttention-2's
-// shape, on this card):
-//   * Warps.  A block has 8 row warps of 16 query rows (BQ = 128) where
-//     that gives a block per SM, else 4 (BQ = 64); where even that leaves
-//     SMs idle and the keys span more than one tile, 2 row warps (32
-//     rows, twice the blocks) in 4 key groups (2 at D = 128): group g
-//     takes key tiles g, g + KG, ..., and the groups' (m, l, o) merge
-//     through shared memory at the end.  The grid's order is the float32
-//     path's, heaviest tiles first; a warp skips a key tile wholly
-//     outside its rows' causal or window range.
-//   * Loads.  q and the K and V tiles of 64 keys arrive by TMA: the host
-//     encodes a tensor map of each operand per call (its strides, so the
-//     engine's transposed views need no copy), and one thread asks for
-//     64-column boxes that land 128-byte swizzled, so that ldmatrix's 8
-//     rows of a matrix hit 8 distinct bank groups; the hardware zero-fills
-//     rows past T or S and columns past D.  Rounds of KG tiles go through
-//     a ring of 3 stages (D <= 64) or 2, each completing on its mbarrier.
-//     Per-thread 16-byte cp.async spent most of a tile's time in issue on
-//     the H100, and per-row bulk copies clogged the memory pipe.
-//   * Softmax on the fragments.  In the m16n8 accumulator lane i holds
-//     rows i / 4 and i / 4 + 8, so a row's max and sum take two
-//     __shfl_xor_sync in its quad; scores are kept in log2 units (scale
-//     times log2 e) for ex2.approx; masks are applied only on a tile that
-//     is not wholly valid for the warp.  The row sum stays per lane,
-//     rescaled by corr, and is summed over the quad once, at the end.
-//     The guards are the float32 path's.  The accumulator of the scores
-//     is, lane for lane, the A fragment of p.V: p never leaves registers.
-//   * Widths.  A template on DT in {64, 128, 256}, whole 64-column slabs;
-//     the k-steps of q.k^T and the output tiles stop at D (16 runs 1 of
-//     4 steps, 80 and 96 run 5 and 6 of 8).  q's fragments stay in
-//     registers up to D = 64 at 8 warps, 128 at fewer.
+// bfloat16 with 16-byte aligned rows (D a multiple of 8): Hopper's
+// warpgroup tensor cores (flash_attention_kernel_wgmma).  The TPU kernel
+// widens q, k and v to float32 and keeps the scores and p in float32 up
+// to one rounding at the output.  Here q.k^T is wgmma with bf16 operands
+// and float32 sums (the products of two bf16 are exact in float32, so
+// only the order of the sum differs), and p.V splits p into three bf16
+// parts, the top 8 significant bits, the next 8 and the last 8, three
+// products against the same V summed in float32: the parts add up to p
+// exactly.  One rounding of p would move each weight by up to 2^-9; two
+// parts keep it to 2^-18, which on the card rounded many times more
+// outputs away from the float32 reference than the CUDA-core path does
+// and split a bf16 serve lifecycle of chip_smoke.py at a near tie.
+//   Bound: the causal work, 4 D flops a visible (query, key) pair, at
+//   989 TFLOP/s: 34.8 us at S = 2048, H = 32, D = 128.  The three parts
+//   make this design issue 8 D a pair, so its own floor is twice that,
+//   69.5 us.  What holds it above that floor is each warpgroup's chain a
+//   tile (wait for the tile, q.k^T, softmax, split, p.V, each waiting for
+//   the last) and the instructions the chain issues, which only the other
+//   warpgroup's products overlap.  At a short prompt or a grid that
+//   leaves SMs idle, the latency of a block's first loads and of its
+//   chain of key tiles sets the time.
+//   Design:
+//   * Blocks.  Two warpgroups of 64 query rows each (BQ = 128) where that
+//     gives a block per SM, over tiles of 128 keys (D <= 128), which halves
+//     the chain's fixed costs a key.  Where 128-row blocks leave SMs idle
+//     and the keys span more than one tile, two warpgroups share 64 rows
+//     and take alternate tiles of 64 keys (their (o, m, l) merge through
+//     shared memory at the end); else one warpgroup of 64 rows and
+//     64-key tiles (a short prompt: one head a block, which measured
+//     faster than the G heads of a KV head packed into a block's rows).
+//     There is no producer warp: a ninth warp puts three warps on one of
+//     the SM's four register files, 168 registers a thread, and with a
+//     producer warpgroup and setmaxnreg (24 / 240) ptxas still kept the
+//     consumers near 172 registers and spilled them.  Thread 0 issues the
+//     loads as its warpgroup passes the tiles.
+//   * A TMA ring.  q arrives once a block; K and V tiles go through a ring
+//     of 2-8 stages (by the shared memory they take), each with a full
+//     and an empty mbarrier; a stage is refilled while group 0 runs a
+//     later tile's p.V.  The host encodes a tensor map of each operand per
+//     call (its strides, so the engine's transposed (1, S, H, D) views
+//     need no copy); boxes of 64 columns land 128-byte swizzled, as the
+//     wgmma descriptors read them, and the hardware zero-fills rows past
+//     T or S and columns past D.  A wait on a copy that never lands traps.
+//     Every warp waits for and releases every tile, so no stage's phase
+//     sees an arrival early.
+//   * S = q.k^T, m64nBKk16 from two K-major descriptors (q and K as
+//     stored).  The softmax runs on the accumulator fragments: lane l
+//     holds rows l / 4 and l / 4 + 8 of its warp's 16, so a row's max and
+//     sum take two shuffles in its quad; scores in log2 units, the scale
+//     folded into ex2.approx's argument; masks only on a tile that is not
+//     wholly valid.
+//   * O += P.V from registers.  The score accumulator is, lane for lane,
+//     the register A operand of the next product: three m64n128k16 (D =
+//     128; m64n64k16 a 64-column slab otherwise) a 16-key step, one a
+//     part of p, against the same MN-major descriptor of V (transposed by
+//     the instruction), in commits of 64 keys (32 at D = 256) with a wait
+//     between.  The tensor cores take each tile's p.V from zero; o, the
+//     sum over tiles, is rescaled and added in float32 on the CUDA cores
+//     (o = o corr + p.V).  Summed across all tiles inside the tensor
+//     cores, as mma.sync did, p.V rounded 0.002 of the outputs at S =
+//     2048 away from the float32 reference; a tile at a time, 0.0007.  At
+//     D = 256 registers leave no room for that second accumulator: o is
+//     rescaled, then accumulates in the tensor cores.
+//   * One tile at a time, and no branch among a tile's products (ptxas
+//     serializes every wgmma of a kernel where one is conditional or an
+//     accumulator it has in flight is written): the k-steps run the
+//     template's width (a D of 80 or 96 runs all 8 over zero columns).
+//     Issuing the next tile's q.k^T with this tile's p.V, so that the
+//     softmax overlaps it, and the two groups taking turns on the tensor
+//     cores (FlashAttention-3's schedules) both measured slower.
+//   * Schedule.  The grid's order is the float32 path's, heaviest tiles
+//     first; a block loads the tiles from the first its window reaches to
+//     its causal diagonal, and a warpgroup computes only those its rows
+//     see.  Widths: a template on DT in {64, 128, 256}.
 // The kernel takes the (batch, head, position) strides of q, k and v,
 // so the engine's (B, S, H, D) projections are read through a
 // transposed view with no copy; each row of D must be contiguous.  out
@@ -365,52 +393,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- bfloat16 on the tensor cores ------------------------------------------
-// A bf16 pair in one 32-bit register: lo in the low half (the lower column
-// of an mma fragment), hi in the high half.
-__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// (x, y) as three bf16 pairs whose sum keeps them to about 2^-27:
-// hi = bf16(x, y), mid = bf16(x - hi, y - hi), lo = bf16(x - hi - mid,
-// y - hi - mid) (each difference is exact in float32).
+// ---- bfloat16 on the warpgroup tensor cores --------------------------------
+// (x, y) as three bf16 pairs, x in the low half of each 32-bit register (the
+// lower column of an mma fragment), whose sum is exactly (x, y): each part is
+// the top 16 bits of what the parts before it left (hi: the sign, the
+// exponent and 7 bits of the mantissa; mid the next 8 significant bits;
+// lo the last 8, which a bf16 holds whole).  Each difference is exact in
+// float32, and the truncations cost a mask and a byte permute each.
 __device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi, unsigned& mid,
                                            unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const float rx = x - hf.x, ry = y - hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
-  const float2 mf = __bfloat1622float2(m);
-  hi = bf16x2_bits(h);
-  mid = bf16x2_bits(m);
-  lo = bf16x2_bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
-}
-
-// Four 8x8 b16 matrices from shared memory: lane i gives the shared
-// address of row i % 8 of matrix i / 8, and receives row i / 4, columns
-// 2 (i % 4) and + 1 of each (.trans: of each matrix transposed).
-__device__ __forceinline__ void ldsm_x4(unsigned a, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned a, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// c += a (16x16, row) . b (16x8, col), bf16 in, float32 sums.  Not
-// volatile: the compiler may move it among the loads.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  const unsigned xb = __float_as_uint(x), yb = __float_as_uint(y);
+  hi = __byte_perm(xb, yb, 0x7632);
+  const float rx = x - __uint_as_float(xb & 0xffff0000u);
+  const float ry = y - __uint_as_float(yb & 0xffff0000u);
+  const unsigned rxb = __float_as_uint(rx), ryb = __float_as_uint(ry);
+  mid = __byte_perm(rxb, ryb, 0x7632);
+  lo = __byte_perm(__float_as_uint(rx - __uint_as_float(rxb & 0xffff0000u)),
+                   __float_as_uint(ry - __uint_as_float(ryb & 0xffff0000u)), 0x7632);
 }
 
 // 2^x (ex2.approx.ftz: about 2^-22 relative; 2^-inf = 0).
@@ -441,6 +440,21 @@ __device__ __forceinline__ void tma_box(unsigned dst, const CUtensorMap& map,
       : "memory");
 }
 
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
 // A wait that never ends (a copy that did not land) traps after about
 // 2^30 polls, so that the launch fails instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
@@ -469,343 +483,558 @@ struct TcParams {
   int q_hi, k_hi, v_hi;  // heads inner
 };
 
-// A tile of `rows` rows in shared memory as TMA writes it: DT / 64 slabs
-// of 64 columns, each rows x 128 bytes, 16-byte chunk c of row r at chunk
-// c ^ (r % 8), so that the 8 rows an ldmatrix matrix reads fall in 8
-// distinct bank groups.  The byte offset of chunk c (8 columns) of row r.
-template <int ROWS>
-__device__ __forceinline__ unsigned swz(int r, int c) {
-  return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+// ---- wgmma ----
+// Shared-memory matrix descriptors for tiles as TMA writes them with the
+// 128-byte swizzle: rows of 128 bytes (64 bf16), 16-byte chunk c of row
+// r at chunk c ^ (r % 8), 8-row groups 1024 bytes apart, every tile
+// 1024-byte aligned.  Bits: start address >> 4 [0, 14), leading byte
+// offset >> 4 [16, 30), stride byte offset >> 4 [32, 46), swizzle mode
+// [62, 64) (1: 128 bytes).
+//   K-major (q and K rows, the 16 columns of a k-step side by side): the
+//   stride is the 1024 bytes between 8-row groups; the leading offset is
+//   not read (1).  A k-step of 16 columns moves the start by 32 bytes
+//   within the swizzled row.
+//   MN-major (V, 16 keys of 64 columns a k-step): 8-key groups 1024
+//   bytes apart; one 64-column atom an instruction, so the leading offset
+//   (the stride between atoms) is not read either: 1024 as well.
+__device__ __forceinline__ uint64_t desc_sw128(unsigned addr, unsigned lead) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
 }
 
-// NR warps of 16 query rows each, KG groups of them over the key tiles
-// (group g takes the tiles g, g + KG, ... of the same rows).
-template <int DT, int NR, int KG>
-struct TcLayout {
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of this warpgroup's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The compiler may not move a read of r above, or a write of r below, this
+// point: registers that an asynchronous wgmma writes or reads are touched
+// only between the waits.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, float32) = a (64 x 16) . b (16 x 64) + (accumulate ? d : 0),
+// a and b bf16 from K-major shared-memory descriptors.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, float32) = a (64 x 16, bf16 in registers: each warp's 16
+// rows as the A fragment of mma.sync m16n8k16) . b (16 x 64, bf16, an
+// MN-major descriptor: 16 rows of V, transposed by the instruction) +
+// (accumulate ? d : 0).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const unsigned (&a)[4],
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, float32) = a (64 x 16) . b (16 x 128) + (accumulate ? d : 0),
+// a and b bf16 from K-major shared-memory descriptors.
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// (d0, d1) (64 x 128, float32: columns 0-63, 64-127) = a (64 x 16, bf16 in
+// registers, as wgmma_rs) . b (16 x 128, bf16, MN-major: two 64-column
+// atoms, the descriptor's leading offset apart) + (accumulate ? (d0, d1) : 0).
+__device__ __forceinline__ void wgmma_rs128(float (&d0)[32], float (&d1)[32],
+                                            const unsigned (&a)[4], uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]), "+f"(d0[5]),
+        "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
+        "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]), "+f"(d0[16]), "+f"(d0[17]),
+        "+f"(d0[18]), "+f"(d0[19]), "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]),
+        "+f"(d0[30]), "+f"(d0[31]), "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
+        "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]), "+f"(d1[8]), "+f"(d1[9]),
+        "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]),
+        "+f"(d1[22]), "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// How a block's rows are cut: kRows, each warpgroup its own 64 query rows
+// of one head; kSplit, two warpgroups on the same 64 rows, over alternate
+// key tiles, merged at the end.
+enum WgMode { kRows = 0, kSplit = 1 };
+
+// A block: NWG warpgroups, and no producer warp: thread 0 issues the TMA
+// loads as its warpgroup passes the tiles.  A ninth warp would put three
+// warps on one of the SM's four register files, 168 registers a thread.
+template <int DT, int NWG, int MODE>
+struct WgLayout {
   static_assert(DT % 64 == 0, "whole 64-column slabs");
-  static constexpr int BQ = 16 * NR;                // query rows
-  static constexpr int NW = NR * KG;                // warps
-  // two blocks of 8 warps an SM (128 registers a thread) up to D = 128
-  static constexpr int kMinBlocks = DT <= 128 && NW == 8 ? 2 : 1;
-  static constexpr int kStages = DT <= 64 ? 3 : 2;  // rounds of tiles in flight
-  static constexpr int kQ = BQ * DT * 2;            // bytes
-  static constexpr int kKV = kBK * DT * 2;          // one K or V tile
-  static constexpr int kStage = 2 * KG * kKV;       // K, then V, of KG tiles
+  static_assert(MODE != kSplit || NWG == 2, "kSplit: two warpgroups on one row tile");
+  static constexpr int BQ = MODE == kRows ? 64 * NWG : 64;  // query rows
+  static constexpr int NS = DT / 64;                        // 64-column slabs
+  static constexpr int kThreads = 128 * NWG;
+  // keys a tile: 128 with two groups of rows up to D = 128, halving the
+  // tiles' fixed costs (waits, barriers, the latency of each product's
+  // chain); 64 under kSplit, whose groups take alternate tiles of short
+  // rows, with one group (a short prompt: the wider tile measured slower),
+  // and at D = 256, whose registers hold no wider score tile
+  static constexpr int BK = MODE == kRows && NWG == 2 && DT <= 128 ? 128 : 64;
+  static constexpr int KT = BK / 16;  // 16-key steps of p.V
+  // stages of the K/V ring (64 KB a stage at BK = 128, D = 128, or at
+  // D = 256); a stage is refilled LAG tiles after it was read, so that
+  // under kSplit the other group's tile in flight never blocks it
+  static constexpr int kStages = DT >= 256 ? 2 : BK == 128 ? (DT >= 128 ? 3 : 6)
+                                                           : (DT >= 128 ? 6 : 8);
+  static constexpr int LAG = MODE == kSplit ? 3 : 1;
+  static_assert(kStages > LAG, "a load in flight ahead of the tiles read");
+  // up to D = 128 each tile's p.V is taken from zero in a second
+  // accumulator and added to o in float32; at D = 256 registers leave no
+  // room for it
+  static constexpr bool kTileAcc = DT <= 128;
+  // 16-key steps of p.V a commit (a wait between commits): their parts of
+  // p stay in registers until the products that read them complete
+  static constexpr int KC = DT >= 256 ? 2 : 4;
+  // p.V as one m64n128k16 over both 64-column slabs of V at D = 128
+  static constexpr bool kWide = DT == 128;
+  static constexpr int kQ = BQ * DT * 2;    // bytes
+  static constexpr int kKV = BK * DT * 2;   // one K or V tile
+  static constexpr int kStage = 2 * kKV;    // K, then V
   static constexpr int kData = kQ + kStages * kStage;
-  static constexpr int kBytes = 1024 + kData + 8 * kStages;  // 1 KB to align
-  // every group's o, m and l, lane by lane, over the stages
-  static constexpr int kMerge = KG == 1 ? 0 : 4 * KG * NR * 32 * (DT / 2 + 4);
+  static constexpr int kBytes = 1024 + kData + 8 * (1 + 2 * kStages);  // 1 KB to align
+  // kSplit's merge: every warp's o, m and l, lane by lane, over q and the ring
+  static constexpr int kSlot = 32 * (DT / 2 + 4);  // floats a warp
+  static constexpr int kMerge = MODE == kSplit ? 4 * NWG * 4 * kSlot : 0;
   static_assert(kBytes <= kMaxSmem, "shared memory");
-  static_assert(kMerge <= kStages * kStage, "merge buffer");
+  static_assert(kMerge <= kData, "merge buffer");
 };
 
 // The bfloat16 function of flash_attention_kernel (16-byte aligned rows,
-// D a multiple of 8) with both products on the tensor cores.  Row warp
-// r owns query rows q0 + 16 r + [0, 16); in mma's m16n8 accumulator
-// lane i holds rows i / 4 and i / 4 + 8, columns 2 (i % 4) and + 1 of
-// each 8-column tile, so a row's max and sum take two shuffles in its
-// quad of lanes, and the probabilities, still in registers, are the A
-// fragment of p.V.  Named under flash_attention_kernel, so that a
-// profile counts it with the wrapper's launches.
-template <int DT, int NR, int KG>
-__global__ void __launch_bounds__(NR * KG * 32, TcLayout<DT, NR, KG>::kMinBlocks)
-    flash_attention_kernel_mma(const __grid_constant__ TcParams tp) {
-  using L = TcLayout<DT, NR, KG>;
+// D a multiple of 8) with both products on wgmma.  Consumer warpgroup w
+// owns 64 query rows; in the m64n64 accumulator warp i of the group holds
+// rows 16 i + [0, 16), lane l rows l / 4 and l / 4 + 8 of each 8-key
+// column tile j at keys 8 j + 2 (l % 4) and + 1, so a row's max and sum
+// take two shuffles in its quad, and the probabilities, still in
+// registers, are, lane for lane, the A fragment of p.V.  Named under
+// flash_attention_kernel, so that a profile counts it with the wrapper's
+// launches.
+template <int DT, int NWG, int MODE>
+__global__ void __launch_bounds__(WgLayout<DT, NWG, MODE>::kThreads, 1)
+    flash_attention_kernel_wgmma(const __grid_constant__ TcParams tp) {
+  using L = WgLayout<DT, NWG, MODE>;
   using bf16 = __nv_bfloat16;
   const Params& p = tp.p;
-  constexpr int BQ = L::BQ;
+  constexpr int BQ = L::BQ, NS = L::NS, ST = L::kStages, BK = L::BK;
   constexpr int KT = DT / 16;  // 16-column steps of q.k^T
-  constexpr int NO = DT / 8;   // 8-column tiles of the output
-  constexpr int NS = DT / 64;  // 64-column slabs of a tile
-  constexpr bool kQRegs = DT <= (L::kMinBlocks == 2 ? 64 : 128);  // q's fragments in registers
   extern __shared__ __align__(16) unsigned char sm_raw[];
   unsigned char* sm_bytes = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(sm_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const unsigned q_s = smem_u32(sm_bytes);  // (BQ, DT), swizzled
-  const unsigned kv_s = q_s + L::kQ;        // stages x (K, V) x KG x (BK, DT)
-  const unsigned bars = kv_s + L::kStages * L::kStage;
+  const unsigned q_s = smem_u32(sm_bytes);  // NS slabs of (BQ, 64), swizzled
+  const unsigned kv_s = q_s + L::kQ;        // stages x (K, V) x NS slabs of (BK, 64)
+  const unsigned q_bar = kv_s + ST * L::kStage;
+  const unsigned full = q_bar + 8, empty = full + 8 * ST;
 
-  const int hb = gridDim.x / p.n_qt;  // heads x batch
+  // the grid: query tiles slowest, the heaviest (last) first
+  const int hb = gridDim.x / p.n_qt;
   const int qt = p.n_qt - 1 - static_cast<int>(blockIdx.x) / hb;
   const int rem = static_cast<int>(blockIdx.x) % hb;
   const int h = rem % p.H;
   const int b = rem / p.H;
   const int hk = h / p.G;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rw = warp % NR, grp = warp / NR;  // row warp, key group
-  const int g = lane >> 2, t4 = lane & 3;
   const int q0 = qt * BQ;
-  const int wq0 = q0 + 16 * rw;
-  const int D16 = (p.D + 15) / 16;  // 16-column steps that hold a column < D
-  const int D8 = p.D / 8;           // output tiles
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(kFull, tid / 128, 0);  // warp-uniform, as the compiler sees it
 
+  // the block's key tiles: from the first the window reaches to the
+  // causal diagonal; none where no key is left (every tile it loads holds
+  // a key that one of its rows sees)
   const int q_last = min(q0 + BQ, p.S) - 1;
   const int k_end = p.causal ? min(p.T, q_last + 1) : p.T;
   const int k_begin = p.has_window ? max(0, q0 - p.window + 1) : 0;
-  const int kt0 = k_begin / kBK;
-  const int n_tiles = k_end > kt0 * kBK ? (k_end - kt0 * kBK + kBK - 1) / kBK : 0;
-  const int n_rounds = (n_tiles + KG - 1) / KG;  // KG tiles a round
-  // this warp's keys: tiles wholly outside them are skipped
-  const bool w_live = wq0 < p.S;
-  const int w_end = p.causal ? min(p.T, min(wq0 + 15, p.S - 1) + 1) : p.T;
-  const int w_begin = p.has_window ? max(0, wq0 - p.window + 1) : 0;
+  const int kt0 = k_begin / BK;
+  const int n_tiles = k_end > k_begin ? (k_end - kt0 * BK + BK - 1) / BK : 0;
 
   if (tid == 0) {
+    mbar_init(q_bar, 1);
 #pragma unroll
-    for (int s = 0; s < L::kStages; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bars + 8 * s)
-                   : "memory");
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * NWG);  // every warp, every tile
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // round i's tiles (KG i + group) into stage i % kStages, and q with
-  // round 0, by thread 0: a box of 64 columns a slab
-  auto issue = [&](int i) {
-    const int st = i % L::kStages;
-    const unsigned bar = bars + 8 * st;
-    const unsigned stage = kv_s + st * L::kStage;
-    int tiles = 0;
+  // thread 0 loads: q, then tile u into stage u % ST once every warp has
+  // released tile u - ST, as group 0 passes tile u - ST + LAG
+  auto load = [&](int u) {
+    const int st = u % ST;
+    const unsigned bar = full + 8 * st, dst = kv_s + st * L::kStage;
+    if (u >= ST) mbar_wait(empty + 8 * st, (u / ST - 1) & 1);
+    mbar_expect(bar, L::kStage);
+    const int k0 = (kt0 + u) * BK;
 #pragma unroll
-    for (int gi = 0; gi < KG; ++gi) tiles += KG * i + gi < n_tiles;
-    const unsigned bytes = tiles * 2 * L::kKV + (i == 0 ? L::kQ : 0);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-#pragma unroll
-    for (int gi = 0; gi < KG; ++gi) {
-      const int tile = KG * i + gi;
-      if (tile >= n_tiles) continue;
-      const int k0 = (kt0 + tile) * kBK;
-#pragma unroll
-      for (int sl = 0; sl < NS; ++sl) {
-        tma_box(stage + gi * L::kKV + sl * kBK * 128, tp.k, tp.k_hi, 64 * sl, k0, hk, b,
-                bar);
-        tma_box(stage + (KG + gi) * L::kKV + sl * kBK * 128, tp.v, tp.v_hi, 64 * sl, k0, hk,
-                b, bar);
-      }
-    }
-    if (i == 0) {
-#pragma unroll
-      for (int sl = 0; sl < NS; ++sl)
-        tma_box(q_s + sl * BQ * 128, tp.q, tp.q_hi, 64 * sl, q0, h, b, bar);
+    for (int sl = 0; sl < NS; ++sl) {
+      tma_box(dst + sl * BK * 128, tp.k, tp.k_hi, 64 * sl, k0, hk, b, bar);
+      tma_box(dst + L::kKV + sl * BK * 128, tp.v, tp.v_hi, 64 * sl, k0, hk, b, bar);
     }
   };
   if (tid == 0) {
+    if (n_tiles > 0) {
+      mbar_expect(q_bar, L::kQ);
 #pragma unroll
-    for (int i = 0; i < L::kStages - 1; ++i)
-      if (i < n_rounds) issue(i);
+      for (int sl = 0; sl < NS; ++sl)
+        tma_box(q_s + sl * BQ * 128, tp.q, tp.q_hi, 64 * sl, q0, h, b, q_bar);
+    }
+    for (int u = 0; u < min(n_tiles, ST - L::LAG); ++u) load(u);
   }
 
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this lane's columns
-  const float sl2 = p.scale * 1.4426950408889634f;  // scores in log2 units
-  unsigned qf[kQRegs ? KT : 1][4];
-  // lane's ldmatrix rows and 8-column chunks: q and V take row (lane % 8)
-  // + 8 ((lane / 8) % 2) and chunk lane / 16, K row (lane % 8) + 8 (lane /
-  // 16) and chunk (lane / 8) % 2
-  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int a_chunk = lane >> 4;
-  const int k_row = (lane & 7) + 8 * (lane >> 4);
-  const int k_chunk = (lane >> 3) & 1;
-
-  for (int i = 0; i < n_rounds; ++i) {
-    mbar_wait(bars + 8 * (i % L::kStages), (i / L::kStages) & 1);
-    __syncthreads();  // round i is in; every reader of round i - 1 is done
-    if (tid == 0 && i + L::kStages - 1 < n_rounds) issue(i + L::kStages - 1);
-    if (kQRegs && i == 0) {
-#pragma unroll
-      for (int kk = 0; kk < (kQRegs ? KT : 1); ++kk)
-        if (kk < D16) ldsm_x4(q_s + swz<BQ>(16 * rw + a_row, 2 * kk + a_chunk), qf[kk]);
-    }
-    const int tile = KG * i + grp;
-    const int k0 = (kt0 + tile) * kBK;
-    if (tile >= n_tiles || !w_live || k0 >= w_end || k0 + kBK <= w_begin) continue;
-    const unsigned ks = kv_s + (i % L::kStages) * L::kStage + grp * L::kKV;
-    const unsigned vs = ks + KG * L::kKV;
-
-    // s = q . k^T: 16 rows x 64 keys, 8 tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      if (kk >= D16) break;
-      unsigned a[4];
-      if constexpr (kQRegs) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) a[c] = qf[kk][c];
-      } else {
-        ldsm_x4(q_s + swz<BQ>(16 * rw + a_row, 2 * kk + a_chunk), a);
+  {
+    const int lane = tid & 31, wi = (tid >> 5) & 3;  // warp of the group
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = MODE == kRows ? 64 * wg : 0;  // the group's first row in the block
+    const int wq0 = q0 + r0 + 16 * wi;           // the warp's first row
+    // the group's keys: it computes a tile only where they meet it (under
+    // kSplit, and only its own tiles: g, g + 2, ...)
+    const int f_row = q0 + r0;
+    const bool live = f_row < p.S;
+    const int w_end = p.causal ? min(p.T, min(f_row + 63, p.S - 1) + 1) : p.T;
+    const int w_begin = p.has_window ? max(0, f_row - p.window + 1) : 0;
+    auto own = [&](int t) {
+      const int k0 = (kt0 + t) * BK;
+      return (MODE != kSplit || (t & 1) == wg) && live && k0 < w_end && k0 + BK > w_begin;
+    };
+    // as group 0 passes tile t, its thread 0 issues the load of tile t +
+    // ST - LAG: for a tile it computes, while the tile's p.V runs
+    auto refill = [&](int t) {
+      if (tid == 0 && t + ST - L::LAG < n_tiles) load(t + ST - L::LAG);
+    };
+    // every group waits for every tile, in order
+    auto wait_full = [&](int t) { mbar_wait(full + 8 * (t % ST), (t / ST) & 1); };
+    // a warp's part of tile t is done: once every warp's is, thread 0 may
+    // refill its stage
+    auto release = [&](int t) {
+      if (lane == 0) mbar_arrive(empty + 8 * (t % ST));
+    };
+    // the group's next own tile from `t` on; tiles before it are waited
+    // for and released (every warp passes every tile, so no warp
+    // arrives twice on a stage's barrier in one phase)
+    auto next_own = [&](int t) {
+      for (; t < n_tiles && !own(t); ++t) {
+        refill(t);
+        wait_full(t);
+        release(t);
       }
-      unsigned bk[4][4];
-#pragma unroll
-      for (int j2 = 0; j2 < 4; ++j2)
-        ldsm_x4(ks + swz<kBK>(16 * j2 + k_row, 2 * kk + k_chunk), bk[j2]);
-#pragma unroll
-      for (int j2 = 0; j2 < 4; ++j2) {
-        mma_bf16(s[2 * j2], a, bk[j2][0], bk[j2][1]);
-        mma_bf16(s[2 * j2 + 1], a, bk[j2][2], bk[j2][3]);
-      }
-    }
+      return t;
+    };
 
-    // masks (only on a tile that is not wholly valid for the warp's
-    // rows), then the online softmax of rows g and g + 8 over the quad
+    float o[NS][32];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] *= sl2;
-    const bool full = k0 + kBK <= p.T && (!p.causal || k0 + kBK - 1 <= wq0) &&
-                      (!p.has_window || k0 > wq0 + 15 - p.window);
-    if (!full) {
+      for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this lane's columns
+    const float sl2 = p.scale * 1.4426950408889634f;         // scores in log2 units
+    if (n_tiles > 0) mbar_wait(q_bar, 0);
+
+    auto stage_of = [&](int t) { return kv_s + (t % ST) * L::kStage; };
+    // s = q . k^T of tile t (every k-step of the template's width: the
+    // columns past D are zeros); no branch among the products, so that
+    // ptxas keeps s in place and does not serialize them
+    // (a descriptor's start address is its low bits: a step adds its byte
+    // offset / 16 to the tile's descriptor)
+    const uint64_t dq = desc_sw128(q_s + r0 * 128, 1);
+    auto issue_qk = [&](float (&s)[BK / 2], int t) {
+      const uint64_t dk = desc_sw128(stage_of(t), 1);
+      reg_fence(s);
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int qp = wq0 + g + 8 * (c >> 1);
-          const int kp = k0 + 8 * j + 2 * t4 + (c & 1);
-          const bool valid = kp < p.T && (!p.causal || kp <= qp) &&
-                             (!p.has_window || kp > qp - p.window);
-          if (!valid) s[j][c] = -INFINITY;
+      for (int kk = 0; kk < KT; ++kk) {
+        const int off = (kk & 3) * 32;  // within the swizzled row
+        const uint64_t a = dq + ((kk >> 2) * (BQ * 128) + off) / 16;
+        const uint64_t b = dk + ((kk >> 2) * (BK * 128) + off) / 16;
+        if constexpr (BK == 128) {
+          wgmma_ss128(s, a, b, kk > 0);
+        } else {
+          wgmma_ss(s, a, b, kk > 0);
         }
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m[hh], mx);
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = m[hh] == -INFINITY ? 0.f : exp2_approx(m[hh] - m_safe);
-      float sum0 = 0.f, sum1 = 0.f;  // a masked score gives 2^-inf = 0
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][2 * hh] = exp2_approx(s[j][2 * hh] - m_safe);
-        s[j][2 * hh + 1] = exp2_approx(s[j][2 * hh + 1] - m_safe);
-        sum0 += s[j][2 * hh];
-        sum1 += s[j][2 * hh + 1];
       }
-      l[hh] = l[hh] * corr + (sum0 + sum1);
-      m[hh] = m_new;
+      wgmma_commit();
+    };
+    // masks (only on a tile that is not wholly valid for the warp's rows),
+    // then the online softmax of rows g and g + 8 over the quad; p
+    // overwrites s, and corr is each row's rescale of o
+    auto softmax = [&](float (&s)[BK / 2], int t, float (&corr)[2]) {
+      const int k0 = (kt0 + t) * BK;
+      const bool full_tile = k0 + BK <= p.T &&
+                             (!p.causal || k0 + BK - 1 <= wq0) &&
+                             (!p.has_window || k0 > wq0 + 15 - p.window);
+      if (!full_tile) {
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][2 * hh] *= corr;
-        o[n][2 * hh + 1] *= corr;
-      }
-    }
-
-    // o += p . v, p split into three bf16 parts against the same V fragments
+        for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      unsigned pp[3][4];  // the parts of p: hi, mid, lo
-      split_bf16(s[2 * kk][0], s[2 * kk][1], pp[0][0], pp[1][0], pp[2][0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], pp[0][1], pp[1][1], pp[2][1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], pp[0][2], pp[1][2], pp[2][2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], pp[0][3], pp[1][3], pp[2][3]);
-      // two 16-column steps of V a round: their four tiles take each part
-      // of p in turn
-#pragma unroll
-      for (int n2 = 0; n2 < NO / 2; n2 += 2) {
-        if (n2 >= D16) break;
-        const bool two = NO / 2 > 1 && n2 + 1 < D16;
-        unsigned bv[2][4];
-        ldsm_x4_trans(vs + swz<kBK>(16 * kk + a_row, 2 * n2 + a_chunk), bv[0]);
-        if (two) ldsm_x4_trans(vs + swz<kBK>(16 * kk + a_row, 2 * n2 + 2 + a_chunk), bv[1]);
-#pragma unroll
-        for (int part = 0; part < 3; ++part) {
-          mma_bf16(o[2 * n2], pp[part], bv[0][0], bv[0][1]);
-          mma_bf16(o[2 * n2 + 1], pp[part], bv[0][2], bv[0][3]);
-          if (two) {
-            mma_bf16(o[2 * n2 + 2], pp[part], bv[1][0], bv[1][1]);
-            mma_bf16(o[2 * n2 + 3], pp[part], bv[1][2], bv[1][3]);
+          for (int c = 0; c < 4; ++c) {
+            const int qp = wq0 + g + 8 * (c >> 1);
+            const int kp = k0 + 8 * j + 2 * t4 + (c & 1);
+            const bool valid = kp < p.T && (!p.causal || kp <= qp) &&
+                               (!p.has_window || kp > qp - p.window);
+            if (!valid) s[4 * j + c] = -INFINITY;
           }
-        }
       }
-    }
-  }
-
-  // KG > 1: every group's o, m and l, lane by lane, into shared memory
-  // (over the stages); then warp (g, r) merges, in group order, and
-  // writes output tiles [g NO / KG, (g + 1) NO / KG) of row warp r
-  int n_lo = 0, n_hi = NO;
-  if constexpr (KG > 1) {
-    __syncthreads();  // every warp is done with the stages
-    constexpr int kSlot = 32 * (4 * NO + 4);  // floats a warp
-    float* mg = reinterpret_cast<float*>(sm_bytes + L::kQ) + rw * kSlot + lane;
-    constexpr int kGroup = NR * kSlot;        // floats a group
-    {
-      float* my = mg + grp * kGroup;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) my[32 * (4 * n + c)] = o[n][c];
+      // m in log2 units: the scale folds into the exponent's FMA
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        my[32 * (4 * NO + hh)] = m[hh];
-        my[32 * (4 * NO + 2 + hh)] = l[hh];
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float m_new = fmaxf(m[hh], mx * sl2);
+        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+        corr[hh] = m[hh] == -INFINITY ? 0.f : exp2_approx(m[hh] - m_safe);
+        float sum0 = 0.f, sum1 = 0.f;  // a masked score gives 2^-inf = 0
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          s[4 * j + 2 * hh] = exp2_approx(fmaf(s[4 * j + 2 * hh], sl2, -m_safe));
+          s[4 * j + 2 * hh + 1] = exp2_approx(fmaf(s[4 * j + 2 * hh + 1], sl2, -m_safe));
+          sum0 += s[4 * j + 2 * hh];
+          sum1 += s[4 * j + 2 * hh + 1];
+        }
+        l[hh] = l[hh] * corr[hh] + (sum0 + sum1);
+        m[hh] = m_new;
+      }
+    };
+    // the parts of p (hi, mid, lo) of 16-key steps [kk0, kk0 + KC), each
+    // step the A fragment of its keys: rows g and g + 8, keys 2 t4 (+ 1)
+    // and 2 t4 + 8 (+ 1)
+    auto split_p = [&](const float (&s)[BK / 2], int kk0, unsigned (&pp)[L::KC][3][4]) {
+#pragma unroll
+      for (int c = 0; c < L::KC; ++c) {
+        const int j = 2 * (kk0 + c);
+        split_bf16(s[4 * j], s[4 * j + 1], pp[c][0][0], pp[c][1][0], pp[c][2][0]);
+        split_bf16(s[4 * j + 2], s[4 * j + 3], pp[c][0][1], pp[c][1][1], pp[c][2][1]);
+        split_bf16(s[4 * j + 4], s[4 * j + 5], pp[c][0][2], pp[c][1][2], pp[c][2][2]);
+        split_bf16(s[4 * j + 6], s[4 * j + 7], pp[c][0][3], pp[c][1][3], pp[c][2][3]);
+      }
+    };
+    // acc += p . v of tile t's 16-key steps [kk0, kk0 + KC): three products
+    // a step and slab, one a part of p, against the same V; fresh: acc
+    // starts from zero
+    auto issue_pv = [&](float (&acc)[NS][32], const unsigned (&pp)[L::KC][3][4], int t,
+                        int kk0, bool fresh) {
+      const uint64_t dv =
+          desc_sw128(stage_of(t) + L::kKV, L::kWide ? (BK * 128) >> 4 : 1024 >> 4);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) reg_fence(acc[n]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < L::KC; ++c)
+#pragma unroll
+        for (int part = 0; part < 3; ++part) {
+          const uint64_t dvk = dv + (kk0 + c) * (16 * 128 / 16);  // the step's 16 rows of V
+          const int acc_in = !fresh || kk0 + c + part > 0;
+          if constexpr (L::kWide) {
+            wgmma_rs128(acc[0], acc[1], pp[c][part], dvk, acc_in);
+          } else {
+#pragma unroll
+            for (int n = 0; n < NS; ++n)
+              wgmma_rs(acc[n], pp[c][part], dvk + n * (BK * 128 / 16), acc_in);
+          }
+        }
+      wgmma_commit();
+    };
+
+    // One tile at a time; the other group's products fill the tensor cores
+    // during this one's softmax.  (Issuing the next tile's q.k^T before this
+    // tile's p.V, and the two groups taking turns on the tensor cores as in
+    // FlashAttention-3, both measured slower on the H100.)
+    float s[BK / 2];
+    for (int t = next_own(0); t < n_tiles; t = next_own(t + 1)) {
+      wait_full(t);
+      issue_qk(s, t);
+      wgmma_wait<0>();
+      reg_fence(s);
+      float corr[2];
+      softmax(s, t, corr);
+      if constexpr (L::kTileAcc) {
+        // the tensor cores take the tile's p.V from zero, so their sums run
+        // over its 64 keys; o, the sum over tiles, is rescaled and added in
+        // float32 (o = o corr + p.V)
+        float ot[NS][32];
+#pragma unroll
+        for (int kk0 = 0; kk0 < L::KT; kk0 += L::KC) {
+          unsigned pp[L::KC][3][4];
+          split_p(s, kk0, pp);
+          issue_pv(ot, pp, t, kk0, true);
+          if (kk0 == 0) refill(t);
+          wgmma_wait<0>();
+#pragma unroll
+          for (int n = 0; n < NS; ++n) reg_fence(ot[n]);
+        }
+        release(t);
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[n][i] = fmaf(o[n][i], corr[(i >> 1) & 1], ot[n][i]);
+      } else {
+        // D = 256: o itself accumulates p.V in the tensor cores, rescaled
+        // before the tile's products, in two commits of 32 keys
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[n][i] *= corr[(i >> 1) & 1];
+#pragma unroll
+        for (int kk0 = 0; kk0 < L::KT; kk0 += L::KC) {
+          unsigned pp[L::KC][3][4];
+          split_p(s, kk0, pp);
+          issue_pv(o, pp, t, kk0, false);
+          if (kk0 == 0) refill(t);
+          wgmma_wait<0>();
+#pragma unroll
+          for (int n = 0; n < NS; ++n) reg_fence(o[n]);
+        }
+        release(t);
       }
     }
-    __syncthreads();
-    n_lo = grp * (NO / KG);
-    n_hi = n_lo + NO / KG;
+
+    // kSplit: each warp's o, m and l, lane by lane, into shared memory
+    // (over q and the ring, all read); then group w merges both, in group
+    // order, and writes 8-column tiles [w NO / 2, (w + 1) NO / 2)
+    constexpr int NO = DT / 8;
+    int n_lo = 0, n_hi = NO;
+    if constexpr (MODE == kSplit) {
+      __syncthreads();  // every warp is done with q and the ring
+      float* mg = reinterpret_cast<float*>(sm_bytes) + wi * L::kSlot + lane;
+      constexpr int kGroup = 4 * L::kSlot;  // floats a group
+      {
+        float* my = mg + wg * kGroup;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float mq[KG], m_new = -INFINITY;
+        for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int q = 0; q < KG; ++q) {
-        mq[q] = mg[q * kGroup + 32 * (4 * NO + hh)];
-        m_new = fmaxf(m_new, mq[q]);
-      }
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      float lt = 0.f;
+          for (int i = 0; i < 32; ++i) my[32 * (32 * n + i)] = o[n][i];
 #pragma unroll
-      for (int q = 0; q < KG; ++q) {
-        mq[q] = exp2_approx(mq[q] - m_safe);  // the group's weight
-        lt += mg[q * kGroup + 32 * (4 * NO + 2 + hh)] * mq[q];
-      }
-      l[hh] = lt;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        if (n < n_lo || n >= n_hi) continue;
-#pragma unroll
-        for (int c = 2 * hh; c < 2 * hh + 2; ++c) {
-          float x = 0.f;
-#pragma unroll
-          for (int q = 0; q < KG; ++q) x += mg[q * kGroup + 32 * (4 * n + c)] * mq[q];
-          o[n][c] = x;
+        for (int hh = 0; hh < 2; ++hh) {
+          my[32 * (4 * NO + hh)] = m[hh];
+          my[32 * (4 * NO + 2 + hh)] = l[hh];
         }
       }
+      __syncthreads();
+      n_lo = wg * (NO / NWG);
+      n_hi = n_lo + NO / NWG;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mq[NWG], m_new = -INFINITY;
+#pragma unroll
+        for (int q = 0; q < NWG; ++q) {
+          mq[q] = mg[q * kGroup + 32 * (4 * NO + hh)];
+          m_new = fmaxf(m_new, mq[q]);
+        }
+        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+        float lt = 0.f;
+#pragma unroll
+        for (int q = 0; q < NWG; ++q) {
+          mq[q] = exp2_approx(mq[q] - m_safe);  // the group's weight
+          lt += mg[q * kGroup + 32 * (4 * NO + 2 + hh)] * mq[q];
+        }
+        l[hh] = lt;
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (8 * n + j < n_lo || 8 * n + j >= n_hi) continue;
+#pragma unroll
+            for (int c = 2 * hh; c < 2 * hh + 2; ++c) {
+              float x = 0.f;
+#pragma unroll
+              for (int q = 0; q < NWG; ++q)
+                x += mg[q * kGroup + 32 * (32 * n + 4 * j + c)] * mq[q];
+              o[n][4 * j + c] = x;
+            }
+          }
+      }
     }
-  }
 
-  // out = o / l, rows < S, columns < D
-  if (!w_live) return;
-  bf16* ob = static_cast<bf16*>(p.out) +
-             (static_cast<int64_t>(b) * p.H + h) * static_cast<int64_t>(p.S) * p.D;
+    // out = o / l: rows < S, columns < D
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float lt = l[hh];
-    lt += __shfl_xor_sync(kFull, lt, 1);
-    lt += __shfl_xor_sync(kFull, lt, 2);
-    const float lc = fmaxf(lt, 1e-20f);
-    const int qp = wq0 + g + 8 * hh;
-    if (qp >= p.S) continue;
-    bf16* orow = ob + static_cast<int64_t>(qp) * p.D + 2 * t4;
+    for (int hh = 0; hh < 2; ++hh) {
+      float lt = l[hh];
+      lt += __shfl_xor_sync(kFull, lt, 1);
+      lt += __shfl_xor_sync(kFull, lt, 2);
+      const float lc = fmaxf(lt, 1e-20f);
+      const int r = wq0 + g + 8 * hh;
+      bf16* orow = static_cast<bf16*>(p.out) +
+                   ((static_cast<int64_t>(b) * p.H + h) * p.S + r) * p.D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      if (n >= D8) break;
-      if (n < n_lo || n >= n_hi) continue;
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-          __floats2bfloat162_rn(o[n][2 * hh] / lc, o[n][2 * hh + 1] / lc);
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * n + 8 * j;
+          if (!live || r >= p.S || col >= p.D || 8 * n + j < n_lo || 8 * n + j >= n_hi) continue;
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o[n][4 * j + 2 * hh] / lc, o[n][4 * j + 2 * hh + 1] / lc);
+        }
     }
   }
 }
@@ -854,44 +1083,44 @@ cudaError_t encode(CUtensorMap* map, int* heads_inner, const void* base, const S
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int DT, int NR, int KG>
-int launch_mma(const Params& p0, int B, cudaStream_t stream) {
-  using L = TcLayout<DT, NR, KG>;
-  auto kernel = flash_attention_kernel_mma<DT, NR, KG>;
+template <int DT, int NWG, int MODE>
+int launch_wg(const Params& p0, int B, cudaStream_t stream) {
+  using L = WgLayout<DT, NWG, MODE>;
+  auto kernel = flash_attention_kernel_wgmma<DT, NWG, MODE>;
   TcParams tp;
   tp.p = p0;
-  tp.p.n_qt = (p0.S + L::BQ - 1) / L::BQ;
   const int Hkv = p0.H / p0.G;
+  tp.p.n_qt = (p0.S + L::BQ - 1) / L::BQ;
   cudaError_t e = encode(&tp.q, &tp.q_hi, p0.q, p0.qs, B, p0.H, p0.S, p0.D, L::BQ);
-  if (e == cudaSuccess) e = encode(&tp.k, &tp.k_hi, p0.k, p0.ks, B, Hkv, p0.T, p0.D, kBK);
-  if (e == cudaSuccess) e = encode(&tp.v, &tp.v_hi, p0.v, p0.vs, B, Hkv, p0.T, p0.D, kBK);
+  if (e == cudaSuccess) e = encode(&tp.k, &tp.k_hi, p0.k, p0.ks, B, Hkv, p0.T, p0.D, L::BK);
+  if (e == cudaSuccess) e = encode(&tp.v, &tp.v_hi, p0.v, p0.vs, B, Hkv, p0.T, p0.D, L::BK);
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t smem = L::kBytes;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t blocks = static_cast<int64_t>(tp.p.n_qt) * p0.H * B;
-  kernel<<<static_cast<unsigned>(blocks), L::NW * 32, smem, stream>>>(tp);
+  kernel<<<static_cast<unsigned>(blocks), L::kThreads, smem, stream>>>(tp);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 8 row warps (128 rows) where that gives a block per SM; else 4 (64
-// rows); and where even that leaves SMs idle and the keys span more than
-// one tile, blocks of 2 row warps (32 rows, twice the blocks) in 4
-// groups over alternate key tiles (2 groups at D = 128), which cuts the
-// longest block's chain of tiles by as much.
+// The launch plan (mirrored by wgmma_plan in kernels/flash_attention.py):
+//   * two warpgroups of 64 rows each (BQ = 128) where that gives a block
+//     per SM;
+//   * else, where the keys span more than one tile (and D <= 128), kSplit:
+//     64 rows, two warpgroups over alternate key tiles, which halves the
+//     longest block's chain of tiles;
+//   * else one warpgroup of 64 rows.
 template <int DT>
-int launch_mma_dt(const Params& p, int B, int sms, cudaStream_t stream) {
+int launch_wg_dt(const Params& p, int B, int sms, cudaStream_t stream) {
   auto blocks = [&](int bq) {
     return static_cast<int64_t>((p.S + bq - 1) / bq) * p.H * B;
   };
-  if (blocks(128) >= sms) return launch_mma<DT, 8, 1>(p, B, stream);
+  if (blocks(128) >= sms) return launch_wg<DT, 2, kRows>(p, B, stream);
   if constexpr (DT <= 128) {
-    if (blocks(64) < sms && p.T > kBK) return launch_mma<DT, 2, DT <= 64 ? 4 : 2>(p, B, stream);
+    if (p.T > kBK) return launch_wg<DT, 2, kSplit>(p, B, stream);
   }
-  return launch_mma<DT, 4, 1>(p, B, stream);
+  return launch_wg<DT, 1, kRows>(p, B, stream);
 }
 
 template <typename T, int DT, int BQ>
@@ -948,9 +1177,9 @@ int launch(Params p, int B, int sms, cudaStream_t stream) {
   const int Hkv = p.H / p.G;
   if (sizeof(T) == 2 && p.vec && stepped(p.qs, p.H, p.S) && stepped(p.ks, Hkv, p.T) &&
       stepped(p.vs, Hkv, p.T)) {
-    if (p.D <= 64) return launch_mma_dt<64>(p, B, sms, stream);
-    if (p.D <= 128) return launch_mma_dt<128>(p, B, sms, stream);
-    return launch_mma_dt<256>(p, B, sms, stream);
+    if (p.D <= 64) return launch_wg_dt<64>(p, B, sms, stream);
+    if (p.D <= 128) return launch_wg_dt<128>(p, B, sms, stream);
+    return launch_wg_dt<256>(p, B, sms, stream);
   }
   switch (dt) {
     case 16: return launch_dt<T, 16>(p, B, sms, stream);

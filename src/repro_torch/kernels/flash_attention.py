@@ -14,13 +14,14 @@ S, H, D) → (B, H, S, D)`` prefill projections is read in place with no
 copy; only the last dimension must be contiguous.  The kernel has two
 paths (:func:`kernel_path` says which a call takes):
 
-* **bfloat16 on the tensor cores** (rows 16-byte aligned, D a multiple
-  of 8, every stride of a dimension longer than 1 non-zero): ``mma.sync``
-  m16n8k16 for q·kᵀ and for p·V, float32 sums; p stays in registers,
-  split into three bf16 parts that hold its 24 bits, so p·V differs from
-  float32 only in the order of its sums; blocks of 16-row warps (and, on
-  a grid that leaves SMs idle, groups of them over alternate key tiles);
-  q, K and V tiles loaded by TMA from tensor maps the launch encodes.
+* **bfloat16 on Hopper's warpgroup tensor cores** (``"wgmma"``: rows
+  16-byte aligned, D a multiple of 8, every stride of a dimension longer
+  than 1 non-zero): ``wgmma`` for q·kᵀ and for p·V, float32 sums; p stays
+  in registers, split into three bf16 parts that add up to it exactly, so
+  p·V differs from float32 only in the order of its sums, and each key
+  tile's p·V is added to the output in float32; warpgroups of 64 query
+  rows over a TMA ring of key tiles, planned by :func:`wgmma_plan` (two a
+  block, or two over alternate key tiles of the same rows, or one).
 * **float32, and bf16 rows off that alignment, on the CUDA cores**:
   float32 register tiles of the scores and the output, 64-key tiles
   through a two-stage ring (element loads off alignment); the query
@@ -36,7 +37,8 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -67,9 +69,10 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The path of ``csrc/flash_attention.cu`` that a call on these
-    tensors takes, by the rule of its ``launch``: ``"tensor cores"``
-    (bfloat16 rows 16-byte aligned), ``"cuda cores"`` (float32 rows
-    16-byte aligned) or ``"cuda cores, element loads"``."""
+    tensors takes, by the rule of its ``launch``: ``"wgmma"`` (bfloat16
+    rows 16-byte aligned: ``flash_attention_kernel_wgmma``), ``"cuda
+    cores"`` (float32 rows 16-byte aligned) or ``"cuda cores, element
+    loads"``."""
     item = q.element_size()
 
     def aligned(t):
@@ -81,7 +84,70 @@ def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     # the tensor maps step every dimension longer than 1 by a non-zero stride
     stepped = all(n == 1 or st != 0 for t in (q, k, v)
                   for n, st in zip(t.shape[:3], t.stride()[:3]))
-    return "tensor cores" if q.dtype == torch.bfloat16 and stepped else "cuda cores"
+    return "wgmma" if q.dtype == torch.bfloat16 and stepped else "cuda cores"
+
+
+@dataclass(frozen=True)
+class WgmmaPlan:
+    """How ``launch_wg_dt`` cuts a call on the ``"wgmma"`` path."""
+
+    mode: str        # "rows" or "split"
+    warpgroups: int  # warpgroups a block
+    rows: int        # query rows a block
+    keys: int        # keys a tile
+    width: int       # the head-dim template: 64, 128 or 256
+    blocks: int      # the grid
+
+
+def wgmma_plan(B: int, H: int, S: int, T: int, D: int, sms: int) -> WgmmaPlan:
+    """The launch rule of ``launch_wg_dt`` in ``csrc/flash_attention.cu``:
+    two warpgroups of 64 rows where 128-row blocks fill the card; two on
+    the same 64 rows over alternate tiles of 64 keys where the keys span
+    more than one (D <= 128); else one.  A tile holds 128 keys where two
+    groups of rows share it up to D = 128, else 64."""
+    width = 64 if D <= 64 else 128 if D <= 128 else 256
+
+    def blocks(bq):
+        return -(-S // bq) * H * B
+
+    if blocks(128) >= sms:
+        return WgmmaPlan("rows", 2, 128, 128 if width <= 128 else 64, width, blocks(128))
+    if width <= 128 and T > 64:
+        return WgmmaPlan("split", 2, 64, 64, width, blocks(64))
+    return WgmmaPlan("rows", 1, 64, 64, width, blocks(64))
+
+
+def block_tiles(plan: WgmmaPlan, q0: int, S: int, T: int, causal: bool,
+                window: Optional[int]) -> range:
+    """The key tiles (of ``plan.keys`` keys) that the block whose first row
+    is ``q0`` loads: from the first its window reaches to its causal
+    diagonal, none where no key is left."""
+    BK = plan.keys
+    q_last = min(q0 + plan.rows, S) - 1
+    k_end = min(T, q_last + 1) if causal else T
+    k_begin = max(0, q0 - window + 1) if window is not None else 0
+    if k_end <= k_begin:
+        return range(0)
+    kt0 = k_begin // BK
+    return range(kt0, kt0 + -(-(k_end - kt0 * BK) // BK))
+
+
+def group_tiles(plan: WgmmaPlan, q0: int, wg: int, S: int, T: int, causal: bool,
+                window: Optional[int]) -> Tuple[range, List[int]]:
+    """``(rows, tiles)`` that warpgroup ``wg`` of that block computes: its
+    query rows and the key tiles of the block's that meet its rows' keys
+    (under ``"split"``, of its parity only)."""
+    tiles = block_tiles(plan, q0, S, T, causal, window)
+    first = q0 + (64 * wg if plan.mode == "rows" else 0)
+    rows = range(first, min(first + 64, S))
+    if not rows:
+        return rows, []
+    end = min(T, rows[-1] + 1) if causal else T
+    begin = max(0, first - window + 1) if window is not None else 0
+    BK = plan.keys
+    own = [u for i, u in enumerate(tiles)
+           if (plan.mode != "split" or i % 2 == wg) and u * BK < end and u * BK + BK > begin]
+    return rows, own
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

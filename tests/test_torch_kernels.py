@@ -264,14 +264,14 @@ def test_flash_p_split_keeps_float32_precision():
 
 
 @pytest.mark.parametrize("dtype,offset,D,want", [
-    ("bfloat16", 0, 128, "tensor cores"), ("bfloat16", 0, 80, "tensor cores"),
+    ("bfloat16", 0, 128, "wgmma"), ("bfloat16", 0, 80, "wgmma"),
     ("bfloat16", 1, 64, "cuda cores, element loads"),
     ("bfloat16", 0, 20, "cuda cores, element loads"),
     ("float32", 0, 64, "cuda cores"), ("float32", 1, 64, "cuda cores, element loads")])
 def test_flash_kernel_path(dtype, offset, D, want):
     """Which path of the kernel a call takes, by its launch rule: bf16
-    rows 16-byte aligned take the tensor cores; ``offset`` shifts every
-    row by one element off that alignment."""
+    rows 16-byte aligned take the warpgroup tensor cores (``wgmma``);
+    ``offset`` shifts every row by one element off that alignment."""
     from repro_torch.kernels.flash_attention import kernel_path
 
     def rows(h):
@@ -288,9 +288,67 @@ def test_flash_kernel_path_needs_stepped_dimensions():
 
     q = torch.zeros((1, 8, 40, 64), dtype=torch.bfloat16)
     one = torch.zeros((1, 1, 40, 64), dtype=torch.bfloat16)
-    assert kernel_path(q, one, one) == "tensor cores"
+    assert kernel_path(q, one, one) == "wgmma"
     wide = one.expand(1, 2, 40, 64)
     assert kernel_path(q, wide, wide) == "cuda cores"
+
+
+# The bf16 kernel's launch plan (``wgmma_plan``, ``block_tiles`` and
+# ``group_tiles`` in kernels/flash_attention.py, the rule of
+# ``launch_wg_dt`` in csrc/flash_attention.cu), with the mode it must pick:
+# (H, S, T, D, causal, window, sms, mode)
+WGMMA_PLANS = [
+    (32, 47, 47, 128, True, None, 132, "rows"),       # the serve prefill
+    (16, 47, 47, 64, True, 16, 132, "rows"),          # windowed
+    (4, 64, 64, 128, True, None, 132, "rows"),        # one whole tile
+    (4, 65, 65, 128, True, None, 132, "split"),       # a row past it
+    (32, 2047, 2047, 128, True, None, 132, "rows"),   # the long prompt
+    (8, 512, 512, 64, True, None, 132, "split"),      # kernel_bench
+    (8, 513, 513, 64, True, None, 132, "split"),
+    (4, 100, 100, 80, True, 33, 132, "split"),
+    (8, 130, 300, 64, True, None, 132, "split"),      # S < T
+    (8, 300, 130, 64, True, 50, 132, "split"),        # rows past every key
+    (8, 300, 300, 256, True, 128, 132, "rows"),       # one group at D = 256
+    (32, 1100, 1100, 256, True, 1024, 132, "rows"),   # gemma3's window
+    (2, 40, 40, 16, False, None, 132, "rows"),
+    (4, 200, 200, 64, False, 64, 4, "rows"),          # non-causal, windowed
+    (4, 200, 90, 64, False, None, 132, "split"),
+]
+
+
+@pytest.mark.parametrize("H,S,T,D,causal,window,sms,mode", WGMMA_PLANS)
+def test_wgmma_plan_covers_every_visible_pair_once(H, S, T, D, causal, window, sms, mode):
+    """Over the blocks of the plan, the warpgroups' rows and key tiles
+    compute every visible (query, key) pair exactly once and no pair twice,
+    every tile a block loads and every tile a group computes holds a pair
+    its rows see, and a group computes only tiles its block loaded."""
+    from repro_torch.kernels.flash_attention import block_tiles, group_tiles, wgmma_plan
+
+    plan = wgmma_plan(1, H, S, T, D, sms)
+    assert plan.mode == mode
+    BK = plan.keys
+    qp, kp = np.arange(S)[:, None], np.arange(T)[None, :]
+    vis = np.ones((S, T), dtype=bool)
+    if causal:
+        vis &= kp <= qp
+    if window is not None:
+        vis &= kp > qp - window
+    count = np.zeros((S, T), dtype=np.int64)
+
+    def sees(rows, u):
+        return bool(vis[rows.start:rows.stop, u * BK:(u + 1) * BK].any())
+
+    for q0 in range(0, S, plan.rows):
+        loaded = list(block_tiles(plan, q0, S, T, causal, window))
+        assert all(sees(range(q0, min(q0 + plan.rows, S)), u) for u in loaded)
+        for wg in range(plan.warpgroups):
+            rows, tiles = group_tiles(plan, q0, wg, S, T, causal, window)
+            assert set(tiles) <= set(loaded)
+            assert all(sees(rows, u) for u in tiles)
+            for u in tiles:
+                count[rows.start:rows.stop, u * BK:(u + 1) * BK] += 1
+    assert (count[vis] == 1).all()
+    assert count.max() <= 1
 
 
 # --------------------------------------------------------------------- #

@@ -25,9 +25,13 @@ Every case runs in turns, ``parent, change, change, parent`` (the phase-1
 builds beside their own), each time a cold-L2 mean of one call
 (``chip_smoke.time_ms``).  The library call (SDPA, ``torch.mm``) and the
 plain version are timed before and after the turns.  Before timing,
-both builds are held to the plain version: flash within
-``chip_smoke.TOL``, the route's experts, slots, ``src`` and counts
-exactly equal to the plain routing on the build's own logits.
+every build is held to the plain version: flash within
+``chip_smoke.TOL`` (and its share of outputs that round away from the
+plain version printed), the route's experts, slots, ``src`` and counts
+exactly equal to the plain routing on the build's own logits.  Beside
+each flash case: its bound (``chip_smoke.flash_work``, 4·D flops a
+visible pair), the floor of a kernel that issues p·V in three bf16 parts
+(8·D a pair at 989 TFLOP/s) and the TFLOP/s each time issues at 8·D.
 
 Prints one ``[flash]`` or ``[route]`` line a case, the ``nvidia-smi``
 name and power limit, and last one JSON object ``{"kernel_turns":
@@ -64,7 +68,8 @@ PHASE1_NO_PLACE = ("  if (NT == 1) return static_cast<int>(cudaGetLastError());\
 # name: (B, H, Hkv, S, D, views) of the bfloat16 flash cases
 FLASH = {"serve prefill (1, 32, 47, 128) Hkv=8, views": (1, 32, 8, 47, 128, True),
          "kernel_bench (1, 8, 512, 64) Hkv=2": (1, 8, 2, 512, 64, False),
-         "phi3.5 heads (1, 32, 2048, 128) Hkv=8": (1, 32, 8, 2048, 128, False)}
+         "phi3.5 heads (1, 32, 2048, 128) Hkv=8": (1, 32, 8, 2048, 128, False),
+         "long serve prefill (1, 32, 2047, 128) Hkv=8, views": (1, 32, 8, 2047, 128, True)}
 # name: (T, d, E, k, C) of the route cases; the phase split where marked
 ROUTE = {"phi3.5-moe decode T=8": (8, 4096, 16, 2, 1),
          "phi3.5-moe prefill T=47": (47, 4096, 16, 2, 7),
@@ -116,6 +121,7 @@ def module_over(build, path: Path, name: str, lib_path: Path):
     replaced by one that hands it the library at ``lib_path``."""
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # a dataclass of the module looks its module up
     spec.loader.exec_module(mod)
     lib = ctypes.CDLL(str(lib_path))
     lib.tpp_error_string.argtypes = [ctypes.c_int]
@@ -155,18 +161,23 @@ def flash_phase(torch, cs, builds, flush, fails):
             return torch.randn((B, h, S, D), generator=gen, device="cuda").to(torch.bfloat16)
 
         q, k, v = rand(H), rand(Hkv), rand(Hkv)
-        want = builds["change"].flash_attention_plain(q, k, v).float()
-        res = {}
+        plain = builds["change"].flash_attention_plain(q, k, v)
+        want = plain.float()
+        res = {"plan": vars(builds["change"].wgmma_plan(
+            B, H, S, S, D, builds["change"].build.sm_count(q.device)))}
         for b in ("parent", "change"):
             got = builds[b].flash_attention(q, k, v)
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
             res[f"{b}_max_abs_err"] = err
+            res[f"{b}_differ"] = float((got != plain).float().mean())
             if not (torch.isfinite(got).all() and err <= tol
                     and torch.allclose(got.float(), want, atol=tol, rtol=tol)):
                 fails.append(f"flash {b} {name}: max_abs_err {err}")
         nbytes, flops = cs.flash_work(torch, q, k, True, None)
         res["bound_ms"], res["bound_by"] = cs.bound(nbytes, flops, "bfloat16")
+        # p.V in three bf16 parts: 8 D flops a visible pair issued
+        res["three_part_floor_ms"] = 2 * flops / cs.PEAK_FLOPS["bfloat16"] * 1e3
 
         def sdpa():
             return cs.time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -178,6 +189,8 @@ def flash_phase(torch, cs, builds, flush, fails):
         res["kernel_ms"] = in_turns(builds, lambda m: cs.time_ms(
             torch, lambda: m.flash_attention(q, k, v), flush))
         res["library_ms"].append(sdpa())
+        res["issued_tflops"] = {b: [round(2 * flops / (ms * 1e-3) / 1e12, 1) for ms in times]
+                                for b, times in res["kernel_ms"].items()}
         out[name] = res
         cs.log(f"[flash] {name}: {json.dumps(res)}")
         del q, k, v, want
