@@ -1,0 +1,9 @@
+"""The reading of ``step_device_ms``, in a cell whose throughput
+the host paces, where a step's time shows end to end in ``tpot_p95_ms``
+alone."""
+
+from pathlib import Path
+
+from portbench.harness.spec import metric_reader
+
+read = metric_reader("step_device_ms", Path(__file__).resolve().parents[2])
