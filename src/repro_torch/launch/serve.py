@@ -29,7 +29,10 @@ weights do not fit the card's free memory is refused
 
 ``--profile DIR`` then traces 16 decode steps with ``torch.profiler``
 and prints the device busy time, idle share and top device ops per
-step: the breakdown ``PERF.md`` ("Where the time goes") is taken from.
+step: the breakdown ``PERF.md`` ("Where the time goes") is taken from;
+``span_host_ms_per_step`` gives the host milliseconds a step in each of
+the port's own spans (``repro_torch.spans``: the decode step's phases,
+placement, the MoE's stages).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.model import ModelConfig, init_params, param_bytes
 from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.spans import NAMES as span_names
 
 
 def strict_fp32() -> None:
@@ -257,8 +261,11 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
     (``trace.json``) to ``out_dir`` and returns, per step, the wall time,
     the device busy time (the sum of kernel times: one stream, so
     kernels do not overlap), the device kernel launches, and the device
-    time of the MoE routing stage (route, dispatch and combine).
-    Tracing slows the host; take end-to-end times from an untraced run.
+    time of the MoE routing stage (route, dispatch and combine), and
+    ``span_host_ms_per_step``: host milliseconds a step inside each of
+    the port's spans that the steps recorded (``repro_torch.spans.NAMES``,
+    children included).  Tracing slows the host; take end-to-end times
+    from an untraced run.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -311,6 +318,8 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
         "top_device_ops_ms_per_step": {
             e.key: e.self_device_time_total / 1e3 / steps for e in top},
         "port_kernels_in_place": own,
+        "span_host_ms_per_step": {
+            e.key: e.cpu_time_total / 1e3 / steps for e in ka if e.key in span_names},
     }
 
 

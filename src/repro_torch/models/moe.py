@@ -36,6 +36,7 @@ from repro_torch.models import nn
 from repro_torch.models.ffn import ffn_fwd, init_ffn
 from repro_torch.models.layout import replicated
 from repro_torch.models.nn import Params
+from repro_torch.spans import span
 
 
 # Expert-parallel layout axis.  On DTensors the expert compute (E, C, ·)
@@ -105,16 +106,20 @@ def moe_fwd(p: Params, cfg: MoeConfig, x: torch.Tensor,
         1, int(cfg.capacity_factor * T * K / E))
     # float32 activations against the router weight in float32, as JAX's
     # promotion of a float32 x and a bfloat16 w (repro/models/moe.py:90)
-    r = replicated(kernel_ops.moe_route, xt.float(), p["router"]["w"].float(), K, C,
-                    impl=impl)
-    xe = _ep(replicated(kernel_ops.moe_dispatch, xt, r.src, E, C, impl=impl,
-                         slot=r.slot))  # (E, C, d)
+    with span("moe.route"):
+        r = replicated(kernel_ops.moe_route, xt.float(), p["router"]["w"].float(), K, C,
+                        impl=impl)
+    with span("moe.dispatch"):
+        xe = _ep(replicated(kernel_ops.moe_dispatch, xt, r.src, E, C, impl=impl,
+                             slot=r.slot))  # (E, C, d)
 
-    h = nn.silu(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * torch.einsum(
-        "ecd,edf->ecf", xe, p["wi_up"])
-    ye = _ep(torch.einsum("ecf,efd->ecd", _ep(h), p["wo"])).contiguous()  # (E, C, d)
+    with span("moe.experts"):
+        h = nn.silu(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * torch.einsum(
+            "ecd,edf->ecf", xe, p["wi_up"])
+        ye = _ep(torch.einsum("ecf,efd->ecd", _ep(h), p["wo"])).contiguous()  # (E, C, d)
 
-    y = replicated(kernel_ops.moe_combine, ye, r.slot, r.vals, impl=impl, like=xt)
-    if "shared" in p:
-        y = y + ffn_fwd(p["shared"], xt, "swiglu")
+    with span("moe.combine"):
+        y = replicated(kernel_ops.moe_combine, ye, r.slot, r.vals, impl=impl, like=xt)
+        if "shared" in p:
+            y = y + ffn_fwd(p["shared"], xt, "swiglu")
     return y.reshape(B, S, d), r.aux

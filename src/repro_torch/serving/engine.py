@@ -63,6 +63,7 @@ from repro_torch.models.moe import moe_fwd
 from repro_torch.models.transformer import lora_delta
 from repro_torch.qos import make_control
 from repro_torch.serving.kv_cache import KVCacheConfig, TieredKVCache, bucket as _bucket
+from repro_torch.spans import span
 
 
 class AdmissionError(RuntimeError):
@@ -399,19 +400,22 @@ class ServingEngine:
         seq = self.seqs[req.rid]
         if len(req.prompt) <= 1:
             return
-        k_all, v_all = self._prefill_forward(req)  # (L, S, Hkv, D)
-        if self.ecfg.data_plane == "batched":
-            self._prefill_write_batched(seq, k_all, v_all)
-            return
-        L, S = k_all.shape[0], k_all.shape[1]
-        kv_all = torch.cat(
-            [k_all.reshape(L, S, -1), v_all.reshape(L, S, -1)], dim=-1
-        )  # (L, S, W) — layout [all-k | all-v]
-        for t in range(S):
-            pid, slot = self._ensure_page(seq)
-            self.kv.write_token(pid, slot, kv_all[:, t, :])
-            seq.cur_len += 1
-        self._refresh_summaries(seq)
+        with span("engine.prefill"):
+            with span("engine.prefill.forward"):
+                k_all, v_all = self._prefill_forward(req)  # (L, S, Hkv, D)
+            if self.ecfg.data_plane == "batched":
+                with span("engine.prefill.write"):
+                    self._prefill_write_batched(seq, k_all, v_all)
+                return
+            L, S = k_all.shape[0], k_all.shape[1]
+            kv_all = torch.cat(
+                [k_all.reshape(L, S, -1), v_all.reshape(L, S, -1)], dim=-1
+            )  # (L, S, W) — layout [all-k | all-v]
+            for t in range(S):
+                pid, slot = self._ensure_page(seq)
+                self.kv.write_token(pid, slot, kv_all[:, t, :])
+                seq.cur_len += 1
+            self._refresh_summaries(seq)
 
     def _prefill_write_batched(self, seq: _Seq, k_all: torch.Tensor,
                                v_all: torch.Tensor) -> None:
@@ -506,10 +510,12 @@ class ServingEngine:
             )
         # every policy receives both hit streams (NUMA balancing samples
         # fast hits; the rest ignore them)
-        self.policy.step(slow_hits, fast_hits)
+        with span("policy.step"):
+            self.policy.step(slow_hits, fast_hits)
         self.steps += 1
         if self.steps % 4 == 0:
-            self.kv.pool.end_interval()  # also ticks control.note_interval
+            with span("pool.end_interval"):
+                self.kv.pool.end_interval()  # also ticks control.note_interval
         return out
 
     # ------------------------- reference plane ---------------------- #
@@ -612,86 +618,93 @@ class ServingEngine:
         ecfg = self.ecfg
         P = ecfg.page_size
         B = len(active)
-        toks = np.zeros(B, np.int32)
-        for b, seq in enumerate(active):
-            req = self.requests[seq.rid]
-            toks[b] = req.out[-1] if req.out else req.prompt[-1]
+        with span("engine.score"):
+            toks = np.zeros(B, np.int32)
+            for b, seq in enumerate(active):
+                req = self.requests[seq.rid]
+                toks[b] = req.out[-1] if req.out else req.prompt[-1]
 
-        # top-k relevance scores from the device summary tensors (one
-        # small transfer per step)
-        scores = None
-        if (ecfg.topk_pages not in (None, 0)
-                and any(len(s.pages) > ecfg.recent_pages for s in active)):
-            slot_ids = np.asarray([self._slot_of[s.rid] for s in active], np.int32)
-            scores = self._score_impl(
-                self._probe_params, self._ksum, self._kcnt,
-                self._to_device(toks), self._to_device(slot_ids),
-            ).cpu().numpy()
+            # top-k relevance scores from the device summary tensors (one
+            # small transfer per step)
+            scores = None
+            if (ecfg.topk_pages not in (None, 0)
+                    and any(len(s.pages) > ecfg.recent_pages for s in active)):
+                slot_ids = np.asarray([self._slot_of[s.rid] for s in active], np.int32)
+                scores = self._score_impl(
+                    self._probe_params, self._ksum, self._kcnt,
+                    self._to_device(toks), self._to_device(slot_ids),
+                ).cpu().numpy()
 
         # selection + touch/tier accounting, in sequence order
         sels: List[List[int]] = []
         s_hits: List[int] = []
         f_hits: List[int] = []
-        for b, seq in enumerate(active):
-            n_older = max(0, len(seq.pages) - ecfg.recent_pages)
-            older_scores = (scores[b, :n_older] if scores is not None
-                            else np.zeros(n_older, np.float32))
-            sel = self._select_pages(seq, older_scores)
-            sels.append(sel)
-            nf = ns = 0
-            for pid in sel:
-                tier = self.kv.pool.touch(pid)
-                if tier == Tier.SLOW:
-                    s_hits.append(pid)
-                    ns += 1
-                else:
-                    f_hits.append(pid)
-                    nf += 1
-            self.last_hits[seq.rid] = (nf, ns)
+        with span("engine.select"):
+            for b, seq in enumerate(active):
+                n_older = max(0, len(seq.pages) - ecfg.recent_pages)
+                older_scores = (scores[b, :n_older] if scores is not None
+                                else np.zeros(n_older, np.float32))
+                sel = self._select_pages(seq, older_scores)
+                sels.append(sel)
+                nf = ns = 0
+                for pid in sel:
+                    tier = self.kv.pool.touch(pid)
+                    if tier == Tier.SLOW:
+                        s_hits.append(pid)
+                        ns += 1
+                    else:
+                        f_hits.append(pid)
+                        nf += 1
+                self.last_hits[seq.rid] = (nf, ns)
 
-        # allocate every sequence's write target (page-boundary allocs)
-        writes = [self._ensure_page(seq) for seq in active]
-        self._grow_summaries(max(len(s.pages) for s in active))
+        with span("engine.tables"):
+            # allocate every sequence's write target (page-boundary allocs)
+            writes = [self._ensure_page(seq) for seq in active]
+            self._grow_summaries(max(len(s.pages) for s in active))
 
-        # per-step block tables: selected pages (+ the write page when a
-        # boundary alloc created it after selection), padded to buckets
-        entries = []
-        for b, seq in enumerate(active):
-            ent = list(sels[b])
-            if writes[b][0] not in ent:
-                ent.append(writes[b][0])
-            entries.append(ent)
-        Bp = _bucket(B)
-        MPp = _bucket(max(len(e) for e in entries))
-        trash = self.kv.trash_frame
-        bt = np.full((Bp, MPp), trash, np.int32)
-        ps = np.full((Bp, MPp), PAD_PAGE_POS, np.int32)
-        # per-lane vectors: toks, q_pos, wframe, wslot, slot, gi
-        lanes = np.zeros((6, Bp), np.int32)
-        lanes[2] = trash
-        lanes[4] = ecfg.max_seqs
-        for b, seq in enumerate(active):
-            page_index = {pid: i for i, pid in enumerate(seq.pages)}
-            for j, pid in enumerate(entries[b]):
-                bt[b, j] = self.kv.global_frame(pid)
-                ps[b, j] = page_index[pid] * P
-            lanes[:, b] = (toks[b], seq.cur_len,
-                           self.kv.global_frame(writes[b][0]), writes[b][1],
-                           self._slot_of[seq.rid], len(seq.pages) - 1)
+            # per-step block tables: selected pages (+ the write page when a
+            # boundary alloc created it after selection), padded to buckets
+            entries = []
+            for b, seq in enumerate(active):
+                ent = list(sels[b])
+                if writes[b][0] not in ent:
+                    ent.append(writes[b][0])
+                entries.append(ent)
+            Bp = _bucket(B)
+            MPp = _bucket(max(len(e) for e in entries))
+            trash = self.kv.trash_frame
+            bt = np.full((Bp, MPp), trash, np.int32)
+            ps = np.full((Bp, MPp), PAD_PAGE_POS, np.int32)
+            # per-lane vectors: toks, q_pos, wframe, wslot, slot, gi
+            lanes = np.zeros((6, Bp), np.int32)
+            lanes[2] = trash
+            lanes[4] = ecfg.max_seqs
+            for b, seq in enumerate(active):
+                page_index = {pid: i for i, pid in enumerate(seq.pages)}
+                for j, pid in enumerate(entries[b]):
+                    bt[b, j] = self.kv.global_frame(pid)
+                    ps[b, j] = page_index[pid] * P
+                lanes[:, b] = (toks[b], seq.cur_len,
+                               self.kv.global_frame(writes[b][0]), writes[b][1],
+                               self._slot_of[seq.rid], len(seq.pages) - 1)
 
         # one host→device copy for all of the step's index data
-        flat = self._to_device(np.concatenate([lanes.ravel(), bt.ravel(), ps.ravel()]))
-        lane_t = flat[: 6 * Bp].view(6, Bp)
-        bt_t = flat[6 * Bp: 6 * Bp + Bp * MPp].view(Bp, MPp)
-        ps_t = flat[6 * Bp + Bp * MPp:].view(Bp, MPp)
-        out_toks = self._batched_step_impl(
-            lane_t[0], lane_t[1], bt_t, ps_t,
-            lane_t[2], lane_t[3], lane_t[4], lane_t[5],
-        ).cpu().numpy()
-        out: Dict[int, int] = {}
-        for b, seq in enumerate(active):
-            seq.cur_len += 1
-            out[seq.rid] = int(out_toks[b])
+        with span("engine.h2d"):
+            flat = self._to_device(np.concatenate([lanes.ravel(), bt.ravel(), ps.ravel()]))
+            lane_t = flat[: 6 * Bp].view(6, Bp)
+            bt_t = flat[6 * Bp: 6 * Bp + Bp * MPp].view(Bp, MPp)
+            ps_t = flat[6 * Bp + Bp * MPp:].view(Bp, MPp)
+        with span("engine.forward"):
+            toks_t = self._batched_step_impl(
+                lane_t[0], lane_t[1], bt_t, ps_t,
+                lane_t[2], lane_t[3], lane_t[4], lane_t[5],
+            )
+        with span("engine.d2h"):
+            out_toks = toks_t.cpu().numpy()
+            out: Dict[int, int] = {}
+            for b, seq in enumerate(active):
+                seq.cur_len += 1
+                out[seq.rid] = int(out_toks[b])
         return out, s_hits, f_hits
 
     def _batched_step_impl(self, toks, q_pos, block_table, page_start,

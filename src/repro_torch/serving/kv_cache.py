@@ -53,6 +53,7 @@ import torch
 from repro_torch.analysis.plan_verify import CopyOp, check_plan, plan_from_staged
 from repro_torch.core import PagePool, PageType, Tier, TppConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.spans import span
 
 
 def _host_frames(frames: Sequence[int]) -> torch.Tensor:
@@ -222,8 +223,9 @@ class TieredKVCache:
         order = ([c for c in pending if c.demote]
                  + [c for c in pending if not c.demote])
         stores = (self.k_store, self.v_store)
-        staged = kernel_ops.page_gather(stores, _host_frames([c.src for c in order]))
-        kernel_ops.page_scatter(stores, _host_frames([c.dst for c in order]), staged)
+        with span("kv.flush"):
+            staged = kernel_ops.page_gather(stores, _host_frames([c.src for c in order]))
+            kernel_ops.page_scatter(stores, _host_frames([c.dst for c in order]), staged)
         self.flushes += 1
         self.flush_pairs[len(order)] += 1
 
