@@ -920,6 +920,138 @@ def check_moe_fwd(torch, cfg, fails):
     return out
 
 
+MOE_EXPERTS_REL = 1e-5  # float32: the kernel against its plain version, of the largest |y|
+# bfloat16: the kernel against the float32 products of the same bfloat16
+# inputs, of the largest |y| (its h and ye rounded once each; on the card
+# it read up to 3.6e-3 and the bfloat16 einsums, which round g and u too,
+# up to 5.4e-3, PERF.md)
+MOE_EXPERTS_BF16_REL = 8e-3
+# (name, dtype, d, E, k, F, T, C): phi3.5-moe's decode at 64 lanes and
+# chat's 7, its prefills at the drop-free C = T, its training capacity
+# (1.25), and deepseek-v2-lite's decode and prefill at 1.25; in bfloat16
+# the same decode, prefill and capacity shapes
+MOE_EXPERTS_CASES = (
+    ("phi3.5 decode T=64 C=64", "float32", 4096, 16, 2, 6400, 64, 64),
+    ("phi3.5 chat decode T=7 C=7", "float32", 4096, 16, 2, 6400, 7, 7),
+    ("phi3.5 prefill T=512 C=512", "float32", 4096, 16, 2, 6400, 512, 512),
+    ("phi3.5 prefill T=2048 C=2048", "float32", 4096, 16, 2, 6400, 2048, 2048),
+    ("phi3.5 capacity 1.25 T=2048 C=320", "float32", 4096, 16, 2, 6400, 2048, 320),
+    ("deepseek decode T=8 C=1", "float32", 2048, 64, 6, 1408, 8, 1),
+    ("deepseek T=4096 C=480", "float32", 2048, 64, 6, 1408, 4096, 480),
+    ("bf16 phi3.5 decode T=64 C=64", "bfloat16", 4096, 16, 2, 6400, 64, 64),
+    ("bf16 phi3.5 chat decode T=7 C=7", "bfloat16", 4096, 16, 2, 6400, 7, 7),
+    ("bf16 phi3.5 prefill T=2048 C=2048", "bfloat16", 4096, 16, 2, 6400, 2048, 2048),
+    ("bf16 phi3.5 capacity 1.25 T=2048 C=320", "bfloat16", 4096, 16, 2, 6400, 2048, 320),
+    ("bf16 deepseek decode T=8 C=1", "bfloat16", 2048, 64, 6, 1408, 8, 1),
+    ("bf16 deepseek T=4096 C=480", "bfloat16", 2048, 64, 6, 1408, 4096, 480),
+)
+
+
+def expert_case(torch, gen, d, E, k, F, T, C, weights=None, dtype="float32"):
+    """A routed MoE layer's expert inputs on the card: x and a router of
+    std 0.02 (the configs' init) through ``moe_route`` (in float32, as
+    ``moe_fwd``) and ``moe_dispatch`` (in ``dtype``); expert weights of
+    ``init_moe``'s scale in ``dtype``, or the caller's ``(wi_gate, wi_up,
+    wo)``."""
+    from repro_torch.kernels import ops
+
+    x = torch.randn((T, d), generator=gen, device="cuda")
+    w = torch.randn((d, E), generator=gen, device="cuda") * 0.02
+    r = ops.moe_route(x, w, k, C, impl="kernel")
+    xe = ops.moe_dispatch(x.to(getattr(torch, dtype)), r.src, E, C, impl="kernel")
+    if weights is None:
+        weights = tuple(t.to(getattr(torch, dtype)) for t in (
+            torch.randn((E, d, F), generator=gen, device="cuda") / d ** 0.5,
+            torch.randn((E, d, F), generator=gen, device="cuda") / d ** 0.5,
+            torch.randn((E, F, d), generator=gen, device="cuda") / F ** 0.5))
+    return xe, r.counts, weights
+
+
+def check_moe_experts(torch, gen, flush, fails, cases=MOE_EXPERTS_CASES):
+    """``moe_experts`` on the card on the filled rows: in float32 against
+    its plain version within ``MOE_EXPERTS_REL`` of the largest |y|, in
+    bfloat16 against the float32 products of its inputs within
+    ``MOE_EXPERTS_BF16_REL`` (the plain bfloat16 einsums' error beside
+    it); one launch counted and the filled rows added to the engagement
+    counter a call; timed beside its plain version (the einsums over
+    every slot: the path before the kernel, so the library column is
+    left empty) and its bound (the hit experts' weights and the filled
+    rows read once, or the filled rows' FLOPs).  Returns the kernels-line
+    row."""
+    from repro_torch.kernels import moe_experts as mx
+    from repro_torch.kernels import ops
+
+    out, weights, errs = {}, {}, []
+    for name, dtype, d, E, k, F, T, C in cases:
+        key = (dtype, d, E, F)
+        if key not in weights:
+            weights.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        xe, counts, weights[key] = expert_case(torch, gen, d, E, k, F, T, C,
+                                               weights.get(key), dtype)
+        wg, wu, wo = weights[key]
+        call = dict(assignments=T * k)
+        before, launches = ops.moe_expert_rows(), mx.moe_experts.launches
+        ye = ops.moe_experts(xe, counts, wg, wu, wo, impl="kernel", **call)
+        after = ops.moe_expert_rows()
+        plain = ops.moe_experts(xe, counts, wg, wu, wo, impl="ref", **call)
+        ref = plain if dtype == "float32" else ops.moe_experts(
+            xe.float(), counts, wg.float(), wu.float(), wo.float(), impl="ref", **call)
+        filled = counts.clamp(max=C)
+        mask = torch.arange(C, device="cuda") < filled[:, None]
+        scale = ref[mask].abs().max().item() if bool(mask.any()) else 0.0
+        err = (ye.float() - ref)[mask].abs().max().item() if bool(mask.any()) else 0.0
+        rel = MOE_EXPERTS_REL if dtype == "float32" else MOE_EXPERTS_BF16_REL
+        n = int(filled.sum())
+        hit = int((filled > 0).sum())
+        rows_ok = (after["rows"] - before["rows"] == n
+                   and after["slots"] - before["slots"] == E * C
+                   and mx.moe_experts.launches - launches == 1)
+        ok = bool(torch.isfinite(ye[mask]).all()) and err <= rel * max(scale, 1e-30)
+        nbytes = xe.element_size() * (hit * 3 * d * F + 2 * n * d)
+        b_ms, b_by = bound(nbytes, 6.0 * d * F * n, dtype)
+        res = {
+            "dtype": dtype, "plan": mx.experts_plan(E, C, T * k) if dtype == "float32"
+            else "wgmma", "filled_rows": n, "slots": E * C, "experts_hit": hit,
+            "max_abs_err": err, "max_abs_y": scale, "tolerance": rel, "ok": ok,
+            "counted": rows_ok,
+            "ms": time_ms(torch, lambda: ops.moe_experts(xe, counts, wg, wu, wo,
+                                                         impl="kernel", **call), flush),
+            "plain_ms": time_ms(torch, lambda: ops.moe_experts(xe, counts, wg, wu, wo,
+                                                               impl="ref", **call), flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        if dtype != "float32":
+            res["plain_max_abs_err"] = (plain.float() - ref)[mask].abs().max().item()
+        res["roofline_share"] = res["bound_ms"] / res["ms"]
+        out[name] = res
+        errs.append((dtype, err / max(scale, 1e-30)))
+        if not (ok and rows_ok):
+            fails.append(f"moe_experts {name}: {res}")
+        del xe, counts, ye, plain, ref, mask
+    log(f"[kernels] moe_experts {json.dumps(out)}")
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = out[cases[0][0]]
+    return {
+        "name": "moe_experts", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
+        "replaces": "src/repro/models/moe.py:127-131",
+        "replaces_note": "no TPU kernel: XLA einsums over every slot, which are also the "
+                         "plain version, so library_ms is left empty",
+        "shape": cases[0][0], "max_abs_err": max(r["max_abs_err"] for r in out.values()),
+        "tolerance": f"{MOE_EXPERTS_REL} of the largest |y| (bfloat16: "
+                     f"{MOE_EXPERTS_BF16_REL} against float32 products)",
+        "max_rel_err": max(e for t, e in errs if t == "float32"),
+        "bf16_max_rel_err": max(e for t, e in errs if t != "float32"),
+        "kernel_ms": first["ms"], "library_ms": None,
+        **{k: first[k] for k in ("plain_ms", "bound_ms", "bound_by")},
+        "cases": out,
+    }
+
+
 def check_empty_inputs(torch, fails):
     """A wrapper given nothing to do returns without launching, so it
     must not count a launch."""
@@ -942,6 +1074,10 @@ def check_empty_inputs(torch, fails):
     ops.moe_combine_bwd(torch.empty((0, 64), device=dev), torch.empty((16, 1, 64), device=dev),
                         torch.empty((0,), dtype=torch.int32, device=dev),
                         torch.empty((0, 2), device=dev), impl="kernel")
+    ops.moe_experts(torch.empty((16, 0, 64), device=dev),
+                    torch.zeros((16,), dtype=torch.int32, device=dev),
+                    torch.empty((16, 64, 128), device=dev), torch.empty((16, 64, 128), device=dev),
+                    torch.empty((16, 128, 64), device=dev), assignments=0, impl="kernel")
     ops.paged_attention(torch.empty((0, 4, 64), device=dev),
                         torch.empty((3, 2, 16, 64), device=dev),
                         torch.empty((3, 2, 16, 64), device=dev),
@@ -1666,6 +1802,7 @@ def main() -> None:
     rows.append(check_router_topk(torch, gen, flush, fails))
     rows += check_moe_route(torch, gen, moe_cfg, flush, fails)
     rows[-3]["moe_fwd_cuda_vs_cpu"] = check_moe_fwd(torch, moe_cfg, fails)
+    rows.append(check_moe_experts(torch, gen, flush, fails))
     check_empty_inputs(torch, fails)
     rows.append(check_flash_attention(torch, gen, flush, fails, fam_cfgs,
                                       (WINDOWED_ARCH, win_cfg, WINDOWED["prompt_len"] - 1)))
@@ -1893,14 +2030,15 @@ def expected_launches(kv, L, decodes, prefills, routed=0):
     decoding step on the batched plane (none on the reference plane),
     ``flash_attention`` once a layer a prefill (restarts after an
     eviction included), the MoE route, dispatch and combine ``routed``
-    times each (the unfused ``router_topk`` is on no path), and the
-    copies ``expected_copies``."""
+    times each and ``moe_experts`` as often (the unfused ``router_topk``
+    is on no path), and the copies ``expected_copies``."""
     from repro_torch.kernels.page_migrate import MAX_PAIRS
 
     copies = expected_copies(kv, MAX_PAIRS)
     return {"paged_attention": L * decodes if kv.cfg.staged_migration else 0,
             "flash_attention": L * prefills, "router_topk": 0, "moe_route": routed,
             "moe_dispatch": routed, "moe_combine": routed, "moe_combine_bwd": 0,
+            "moe_experts": routed,
             "page_gather": copies, "page_scatter": copies}
 
 
@@ -2852,17 +2990,20 @@ TRAIN_GRAD_REL = 2e-5  # full-width MoE gradients, kernels vs plain autograd
 DVALS_REL = 2e-5  # moe_combine_bwd's dvals: float32 dot products over d
 
 
-def expected_train_launches(moe_layers, forwards, backwards):
+def expected_train_launches(moe_layers, forwards, backwards, expert_forwards=0):
     """A training run's MoE launches: route, dispatch and combine once an
     MoE layer a forward (remat runs each block's forward again in
     backward), the combine once more (the dispatch's backward) and
     ``moe_combine_bwd`` once an MoE layer a backward; nothing else.  A
     decode run is ``forwards`` forwards or ``decode_step``s and no
-    backward (no paged attention, flash kernel or copy either)."""
+    backward (no paged attention, flash kernel or copy either), and
+    ``moe_experts`` once an MoE layer each of its ``expert_forwards``:
+    the forwards with no gradient (a decode run's all)."""
     f, b = moe_layers * forwards, moe_layers * backwards
     return {"paged_attention": 0, "page_gather": 0, "page_scatter": 0, "router_topk": 0,
             "flash_attention": 0, "moe_route": f, "moe_dispatch": f,
-            "moe_combine": f + b, "moe_combine_bwd": b}
+            "moe_combine": f + b, "moe_combine_bwd": b,
+            "moe_experts": moe_layers * expert_forwards}
 
 
 def check_train_launches(name, launches, expected, fails):
@@ -3515,7 +3656,7 @@ def greedy_decode_run(torch, cfg, params, smi, fails, tag="decode"):
         fails.append(f"decode {cfg.name}: malformed tokens {toks.tolist()}")
     if not (res["logits_finite"] and res["score_finite"]):
         fails.append(f"decode {cfg.name}: logits not finite")
-    want = expected_train_launches(L, res["steps"] + 1, 0)
+    want = expected_train_launches(L, res["steps"] + 1, 0, res["steps"] + 1)
     check_train_launches(f"decode {cfg.name}", launches, want, fails)
     states = init_decode_state(cfg, DECODE["requests"],
                                DECODE["prompt_len"] + DECODE["max_new"], device="cuda")
@@ -3571,7 +3712,8 @@ def fwd_vs_decode_run(torch, cfg, params, fails, tag="decode", rel=None):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     check_train_launches(f"fwd vs decode {cfg.name}", launches,
-                         expected_train_launches(moe_layer_count(cfg), P + 1, 0), fails)
+                         expected_train_launches(moe_layer_count(cfg), P + 1, 0, P + 1),
+                         fails)
     full, dec = full.float(), dec.float()
     scale = full.abs().max().item()
     err = (full - dec).abs().max().item()
@@ -3697,7 +3839,8 @@ def decode_smoke_run(torch, arch, steps, batch, fails, tag="decode"):
     if not all(ok for ok, _ in checks):
         fails.append(f"decode smoke {arch}: cuda != cpu {res}")
     check_train_launches(f"decode smoke {arch} ({steps} steps)", launches,
-                         expected_train_launches(moe_layer_count(cfg), steps, 0), fails)
+                         expected_train_launches(moe_layer_count(cfg), steps, 0, steps),
+                         fails)
     log(f"[{tag}] smoke cuda vs cpu {json.dumps(res)}")
     return launches
 
@@ -3892,7 +4035,7 @@ def forward_smoke_run(torch, arch, fails):
     if not (ok and res["finite"]):
         fails.append(f"forward smoke {arch}: cuda != cpu {res}")
     check_train_launches(f"forward smoke {arch}", launches,
-                         expected_train_launches(moe_layer_count(cfg), 1, 0), fails)
+                         expected_train_launches(moe_layer_count(cfg), 1, 0, 1), fails)
     log(f"[ssm] smoke forward cuda vs cpu {json.dumps(res)}")
     return launches
 

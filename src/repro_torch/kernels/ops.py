@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_dispatch as _md
+from repro_torch.kernels import moe_experts as _mx
 from repro_torch.kernels import page_migrate as _pm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import router_topk as _rt
@@ -38,6 +39,7 @@ KERNELS = {
     "moe_dispatch": _md.moe_dispatch,
     "moe_combine": _md.moe_combine,
     "moe_combine_bwd": _md.moe_combine_bwd,
+    "moe_experts": _mx.moe_experts,
 }
 
 
@@ -49,6 +51,7 @@ DEVICE_FUNCTIONS = (("paged_attention", "paged_attention_kernel"),
                     ("moe_combine", "moe_combine_kernel"),
                     ("moe_combine_bwd", "moe_combine_bwd_kernel"),
                     ("flash_attention", "flash_attention_kernel"),
+                    ("moe_experts", "moe_experts_kernel"),
                     ("page_gather+page_scatter", "page_copy_kernel"))
 
 
@@ -154,6 +157,24 @@ def moe_combine_bwd(dy, ye, slot, vals, impl="auto"):
     fn = (_md.moe_combine_bwd if _pick(impl, ye) == "kernel"
           else _md.moe_combine_bwd_plain)
     return fn(dy, ye, slot, vals)
+
+
+def moe_experts(xe, counts, wi_gate, wi_up, wo, assignments, impl="auto"):
+    """→ ``ye (E, C, d)``, the expert SwiGLU of the filled slots ``r <
+    min(counts[e], C)``; the kernel leaves the other rows unwritten, the
+    plain version computes them from ``xe``.  ``assignments`` (T·k) plans
+    the kernel's launch.  No gradient: ``models.moe.moe_fwd`` keeps the
+    einsums where one is needed (their backward is not yet ported)."""
+    if _pick(impl, xe) == "kernel":
+        return _mx.moe_experts(xe, counts, wi_gate, wi_up, wo, assignments)
+    return _mx.moe_experts_plain(xe, counts, wi_gate, wi_up, wo)
+
+
+def moe_expert_rows() -> Dict[str, int]:
+    """The expert rows ``moe_experts`` computed so far (``rows``, read from
+    the card: a host sync, never inside a step) and the ``E * C`` slots
+    its calls offered (``slots``)."""
+    return {"rows": _mx.expert_rows(), "slots": _mx.moe_experts.slots}
 
 
 def launch_counts() -> Dict[str, int]:

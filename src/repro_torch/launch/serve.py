@@ -260,8 +260,9 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
     steps.  Writes the per-op table (``ops.txt``) and a Chrome trace
     (``trace.json``) to ``out_dir`` and returns, per step, the wall time,
     the device busy time (the sum of kernel times: one stream, so
-    kernels do not overlap), the device kernel launches, and the device
-    time of the MoE routing stage (route, dispatch and combine), and
+    kernels do not overlap), the device kernel launches, the device
+    time of the MoE routing stage (route, dispatch and combine), the
+    share of the offered expert slots that ``moe_experts`` computed, and
     ``span_host_ms_per_step``: host milliseconds a step inside each of
     the port's spans that the steps recorded (``repro_torch.spans.NAMES``,
     children included).  Tracing slows the host; take end-to-end times
@@ -282,12 +283,14 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
         acts.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize(eng.device)
     flushes, copies = eng.kv.flushes, _copy_launches()
+    experts = kernel_ops.moe_expert_rows()  # reads the card: before the steps
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         wall = time.perf_counter() - t0
     flushes, copies = eng.kv.flushes - flushes, _copy_launches() - copies
+    experts = {k: n - experts[k] for k, n in kernel_ops.moe_expert_rows().items()}
     ka = prof.key_averages()
     device_us = sum(e.self_device_time_total for e in ka
                     if e.device_type.name == "CUDA")
@@ -313,6 +316,9 @@ def profile_decode(eng: ServingEngine, vocab: int, requests: int,
         "device_launches_per_step": trace_kernel_launches(out / "trace.json") / steps,
         # the MoE layers' route, dispatch and combine kernels, in place
         "moe_routing_us_per_step": sum(routing) if routing else None,
+        # the expert rows moe_experts computed, of the E × C slots offered
+        "moe_expert_rows_share": (experts["rows"] / experts["slots"]
+                                  if experts["slots"] else None),
         "device_busy_ms_per_step": device_us / 1e3 / steps,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "top_device_ops_ms_per_step": {

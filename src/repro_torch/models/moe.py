@@ -10,9 +10,12 @@ expert takes at most ``C = max(1, int(capacity_factor * T * K / E))``
 assignments (or the caller's ``capacity``), ``T`` counting every row of
 ``x`` (padded decode lanes too), first come first served in token
 order; overflowed assignments land in a discarded slot ``E * C`` and
-contribute nothing.  The expert SwiGLU runs batched over all ``E``
-experts as einsums, and the expert and shared products stay plain
-``torch`` matmuls.
+contribute nothing.  The expert SwiGLU is ``kernels.ops.moe_experts``
+over the filled slots alone (on the card a CUDA kernel that reads the
+counts there, float32 or bfloat16) wherever no gradient is needed.
+Autograd and the expert-parallel layout (DTensors) still run it batched
+over all ``E * C`` slots as einsums: the kernel's backward is not yet
+ported.  The shared products stay plain ``torch`` matmuls.
 
 Under autograd the three calls carry the gradient of JAX's ``moe_fwd``
 (router, experts, input, shared FFN): the route's through its gates and
@@ -55,6 +58,18 @@ def _ep(x: torch.Tensor) -> torch.Tensor:
     mesh = x.device_mesh
     layout = [Shard(0) if name == EP_AXIS else Replicate() for name in mesh.mesh_dim_names]
     return x.redistribute(mesh, layout)
+
+
+def _filled_only(xe: torch.Tensor, p: Params) -> bool:
+    """The expert products over the filled slots alone
+    (``kernel_ops.moe_experts``) take plain tensors of one dtype, float32
+    or bfloat16, with no gradient to carry.  Autograd and the
+    expert-parallel layout (DTensors) keep the einsums over every slot:
+    the filled-slot path has no backward yet."""
+    ts = (xe, p["wi_gate"], p["wi_up"], p["wo"])
+    return (xe.dtype in (torch.float32, torch.bfloat16)
+            and all(t.dtype == xe.dtype and not isinstance(t, DTensor) for t in ts)
+            and not kernel_ops._grad(*ts))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,9 +129,13 @@ def moe_fwd(p: Params, cfg: MoeConfig, x: torch.Tensor,
                              slot=r.slot))  # (E, C, d)
 
     with span("moe.experts"):
-        h = nn.silu(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * torch.einsum(
-            "ecd,edf->ecf", xe, p["wi_up"])
-        ye = _ep(torch.einsum("ecf,efd->ecd", _ep(h), p["wo"])).contiguous()  # (E, C, d)
+        if _filled_only(xe, p):
+            ye = kernel_ops.moe_experts(xe, r.counts, p["wi_gate"], p["wi_up"], p["wo"],
+                                        assignments=T * K, impl=impl)
+        else:
+            h = nn.silu(torch.einsum("ecd,edf->ecf", xe, p["wi_gate"])) * torch.einsum(
+                "ecd,edf->ecf", xe, p["wi_up"])
+            ye = _ep(torch.einsum("ecf,efd->ecd", _ep(h), p["wo"])).contiguous()  # (E, C, d)
 
     with span("moe.combine"):
         y = replicated(kernel_ops.moe_combine, ye, r.slot, r.vals, impl=impl, like=xt)

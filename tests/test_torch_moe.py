@@ -32,6 +32,19 @@ def moe_pair(seed, d, cfg_kw):
     return jcfg, jp, tmoe.MoeConfig(**cfg_kw), params_from_jax(np_p, device="cpu")
 
 
+def expert_calls(monkeypatch):
+    """A list that grows by one each time ``moe_fwd`` takes the
+    filled-slot path (``ops.moe_experts``)."""
+    calls, real = [], ops.moe_experts
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "moe_experts", counted)
+    return calls
+
+
 def decode_batch(rng, d, real=5, lanes=8):
     """``lanes`` rows of one token; rows past ``real`` are identical pad
     lanes, as the engine's padded decode batch (token 0 in every pad)."""
@@ -47,14 +60,16 @@ def decode_batch(rng, d, real=5, lanes=8):
     pytest.param(dict(n_experts=8, top_k=3, d_ff_expert=64, n_shared=2,
                       d_ff_shared=128), id="8e-top3-shared"),
 ])
-def test_moe_fwd_matches_jax(experts, shape, capacity_factor):
+def test_moe_fwd_matches_jax(experts, shape, capacity_factor, monkeypatch):
     d = 64
     jcfg, jp, tcfg, tp = moe_pair(3, d, dict(experts, capacity_factor=capacity_factor))
     rng = np.random.default_rng(11)
     x = (decode_batch(rng, d) if shape == "decode"
          else rng.standard_normal((1, 47, d)).astype(np.float32))
     y_j, aux_j = jmoe.moe_fwd(jp, jcfg, jnp.asarray(x))
+    calls = expert_calls(monkeypatch)
     y_t, aux_t = tmoe.moe_fwd(tp, tcfg, torch.from_numpy(x))
+    assert calls == [1], "the experts run over the filled slots (moe_experts)"
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(float(aux_t), float(aux_j), atol=1e-6)
     # at 1.25 some expert overflows its capacity, so assignments drop
@@ -296,7 +311,8 @@ def test_plain_moe_path_launches_no_kernel():
     x = np.random.default_rng(13).standard_normal((2, 9, d)).astype(np.float32)
     tmoe.moe_fwd(tp, tcfg, torch.from_numpy(x))
     assert not any(ops.launch_counts().values())
-    assert {"moe_route", "moe_dispatch", "moe_combine"} <= set(ops.launch_counts())
+    assert {"moe_route", "moe_dispatch", "moe_combine", "moe_experts"} <= set(
+        ops.launch_counts())
 
 
 def test_moe_fwd_refuses_a_router_bias():
@@ -304,3 +320,131 @@ def test_moe_fwd_refuses_a_router_bias():
     tp["router"]["b"] = torch.zeros(4)
     with pytest.raises(ValueError, match="bias"):
         tmoe.moe_fwd(tp, tcfg, torch.zeros((1, 3, 32)))
+
+
+# --------------------------------------------------------------------- #
+# the expert products over the filled slots: moe_experts_plain, which a
+# CPU tensor runs and the kernel is held to on the card
+# --------------------------------------------------------------------- #
+def expert_case(name, F=24):
+    """``(xe, counts, C, (wi_gate, wi_up, wo), route)`` of the route of
+    ``route_case(name)``, its slots filled by the plain dispatch."""
+    x, w, k, C = route_case(name)
+    E, d = w.shape[1], x.shape[1]
+    r = ops.moe_route(torch.from_numpy(x), torch.from_numpy(w), k, C)
+    xe = ops.moe_dispatch(torch.from_numpy(x), r.src, E, C)
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+    ws = tuple(torch.from_numpy((rng.standard_normal(s) / np.sqrt(s[1])).astype(np.float32))
+               for s in ((E, d, F), (E, d, F), (E, F, d)))
+    return xe, r.counts, C, ws, r
+
+
+def filled_rows(counts, C):
+    return torch.arange(C) < counts[:, None]
+
+
+# decode at C = 1 (16 assignments over 16 experts: some drop, some expert
+# gets none), drop-free, E = 64 with k = 6, one token (its two experts at
+# count = C), deepseek's decode
+EXPERT_CASES = ["decode", "drop_free", "64e_top6", "T1", "deepseek_decode_T8"]
+
+
+@pytest.mark.parametrize("name", EXPERT_CASES)
+def test_moe_experts_plain_is_the_einsums_on_the_filled_rows(name):
+    """The plain version (the einsums of ``repro/models/moe.py:127-131``
+    over every slot, held to JAX by ``test_moe_fwd_matches_jax``) launches
+    nothing on the CPU, and the empty slots' rows stay 0 as their
+    dispatched rows, at each route's edge case."""
+    xe, counts, C, (wg, wu, wo), _ = expert_case(name)
+    ops.reset_launch_counts()
+    ye = ops.moe_experts(xe, counts, wg, wu, wo, assignments=int(counts.sum()))
+    mask = filled_rows(counts, C)
+    assert bool(ye[mask].any()) and bool(torch.isfinite(ye).all())
+    assert not ye[~mask].any() and not xe[~mask].any()
+    assert not any(ops.launch_counts().values())
+    held = {"decode": (counts > C).any() and (counts == 0).any(),
+            "drop_free": (counts <= C).all(), "64e_top6": counts.numel() == 64,
+            "T1": int((counts == C).sum()) == 2, "deepseek_decode_T8": (counts > C).any()}
+    assert held[name], f"{name}: counts {counts.tolist()} at C={C}"
+
+
+@pytest.mark.parametrize("name", ["decode", "drop_free", "64e_top6"])
+def test_rows_past_the_count_never_reach_the_combine(name):
+    """The kernel leaves the rows of ``ye`` past the count unwritten: with
+    NaN there, the combine's output is the same bit for bit."""
+    xe, counts, C, (wg, wu, wo), r = expert_case(name)
+    ye = ops.moe_experts(xe, counts, wg, wu, wo, assignments=int(counts.sum()))
+    y = ops.moe_combine(ye, r.slot, r.vals)
+    garbage = ye.clone()
+    garbage[~filled_rows(counts, C)] = float("nan")
+    assert torch.equal(ops.moe_combine(garbage, r.slot, r.vals), y)
+
+
+def test_moe_fwd_under_autograd_keeps_the_einsums(monkeypatch):
+    """An input that needs a gradient takes the einsums over every slot,
+    so every expert weight gets one (``tests/test_torch_train_models.py``
+    holds them to JAX's)."""
+    d = 64
+    tcfg = tmoe.MoeConfig(n_experts=16, top_k=2, d_ff_expert=96)
+    tp = tmoe.init_moe(torch.Generator().manual_seed(7), d, tcfg, device="cpu")
+    x = np.random.default_rng(14).standard_normal((1, 23, d)).astype(np.float32)
+    calls = expert_calls(monkeypatch)
+    xt = torch.from_numpy(x).requires_grad_()
+    leaves = [tp["wi_gate"], tp["wi_up"], tp["wo"]]
+    for t in leaves:
+        t.requires_grad_()
+    y, _ = tmoe.moe_fwd(tp, tcfg, xt)
+    grads = torch.autograd.grad(y.sum(), [xt, *leaves])
+    assert calls == []
+    assert all(bool(torch.isfinite(g).all()) and bool(g.any()) for g in grads)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("float32", True), ("requires_grad", False), ("requires_grad_no_grad", True),
+    ("bfloat16", True), ("float16", False)])
+def test_filled_slot_path_is_chosen_by_what_the_input_shows(case, want):
+    """float32 and bfloat16 plain tensors with no gradient to carry take
+    ``moe_experts``; autograd, and a dtype the kernel does not take, keep
+    the einsums."""
+    dtype = getattr(torch, case) if case in ("bfloat16", "float16") else torch.float32
+    p = {k: torch.zeros(s, dtype=dtype) for k, s in
+         (("wi_gate", (4, 8, 12)), ("wi_up", (4, 8, 12)), ("wo", (4, 12, 8)))}
+    xe = torch.zeros((4, 3, 8), dtype=dtype)
+    if case.startswith("requires_grad"):
+        p["wo"].requires_grad_()
+    if case == "requires_grad_no_grad":
+        with torch.no_grad():
+            assert tmoe._filled_only(xe, p) is want
+    else:
+        assert tmoe._filled_only(xe, p) is want
+
+
+@pytest.mark.parametrize("E,C,assignments,plan", [
+    (16, 64, 128, "skinny"),      # phi3.5-moe decode at 64 lanes, drop-free
+    (16, 7, 14, "skinny"),        # chat's decode
+    (64, 1, 48, "skinny"),        # deepseek's decode
+    (16, 512, 1024, "skinny"),    # a prefill of 512 tokens: 64 rows an expert
+    (16, 2048, 4096, "tiled"),    # of 2048 tokens
+    (16, 320, 4096, "tiled"),     # phi3.5-moe's training capacity
+    (64, 480, 24576, "tiled"),    # deepseek's T = 4096
+])
+def test_experts_plan_follows_the_mean_filled_rows(E, C, assignments, plan):
+    from repro_torch.kernels import moe_experts as mx
+
+    assert mx.experts_plan(E, C, assignments) == plan
+
+
+def test_moe_experts_kernel_refuses_what_it_cannot_take():
+    """The kernel wants CUDA tensors (``impl="kernel"`` on the CPU
+    raises); the shapes are checked on any device."""
+    from repro_torch.kernels import moe_experts as mx
+
+    xe, counts, _, ws, _ = expert_case("decode")
+    n = int(counts.sum())
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.moe_experts(xe, counts, *ws, assignments=n, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        mx.moe_experts(xe, counts, *ws, assignments=n)
+    with pytest.raises(ValueError, match="wo"):
+        ops.moe_experts(xe, counts, ws[0], ws[1], ws[0], assignments=n)
+    assert ops.moe_expert_rows()["rows"] == 0
